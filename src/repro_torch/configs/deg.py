@@ -1,0 +1,51 @@
+"""DEG hyperparameters from the paper (Table 3) keyed by dataset analogue,
+and the query-engine presets.
+
+The JAX package's ``hop_backend`` values map to the port's as
+``"jnp"`` -> ``"composed"`` and ``"pallas"`` -> ``"fused"``; each preset
+keeps its JAX name, so ``"multi-e4-fused"`` is the fused E=4 preset on
+both sides."""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.build import DEGParams
+
+# paper Table 3 (d, k_ext, eps_ext, k_opt, eps_opt, i_opt)
+DEG_PAPER_CONFIGS = {
+    "audio": DEGParams(degree=20, k_ext=40, eps_ext=0.3, k_opt=20,
+                       eps_opt=0.001, i_opt=5),
+    "enron": DEGParams(degree=30, k_ext=60, eps_ext=0.3, k_opt=30,
+                       eps_opt=0.001, i_opt=5),
+    "sift1m": DEGParams(degree=30, k_ext=60, eps_ext=0.2, k_opt=30,
+                        eps_opt=0.001, i_opt=5),
+    "glove": DEGParams(degree=30, k_ext=30, eps_ext=0.2, k_opt=30,
+                       eps_opt=0.001, i_opt=5),
+    "bench-small": DEGParams(degree=16, k_ext=32, eps_ext=0.3, k_opt=16,
+                             eps_opt=0.001, i_opt=5),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchPreset:
+    """Query-engine configuration: beam entries expanded per hop
+    (``expand_width``), the hop implementation (``hop_backend``), the
+    per-lane visited-set size (None = auto: the beam-broadcast dedup unless
+    the fused hop, which needs the filter, is selected) and the beam length
+    (None = the engine heuristic)."""
+
+    expand_width: int = 1
+    hop_backend: str = "composed"
+    visited_size: int | None = None
+    beam_width: int | None = None
+
+
+SEARCH_PRESETS = {
+    "classic": SearchPreset(),
+    "visited-e1": SearchPreset(expand_width=1, visited_size=1024),
+    "multi-e2": SearchPreset(expand_width=2),
+    "multi-e2-l64": SearchPreset(expand_width=2, beam_width=64),
+    "multi-e4": SearchPreset(expand_width=4),
+    "multi-e2-visited": SearchPreset(expand_width=2, visited_size=2048),
+    "multi-e4-fused": SearchPreset(expand_width=4, hop_backend="fused"),
+}

@@ -1,0 +1,372 @@
+"""Incremental DEG construction (paper Algorithm 3 + Sec. 5.2).
+
+:class:`DEGIndex` is the user-facing object: it owns the host-side mutable
+graph (:class:`GraphBuilder`), a host mirror of the vectors, and a device
+vector buffer kept in sync by in-place row writes.  Construction is
+host-orchestrated around batched range searches on the device:
+
+* ``wave_size=1`` — paper-faithful sequential insertion;
+* ``wave_size=W`` — the candidate searches of W pending vertices run as one
+  batched search against the pre-wave graph, then the W extensions are
+  applied in order on the host.
+
+The Alg. 3 extension runs on the host (numpy, as in the JAX package with
+``device_extend=False``).  The device extension is the next slice of the
+port; ``DEGParams.device_extend=True`` raises until then.  The build's
+randomness is numpy (``default_rng(0)`` entry vertices), so with the same
+inputs a build replays the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .graph import DEGraph, GraphBuilder, INVALID, complete_graph
+from .mrng import check_mrng_candidate
+from .search import SearchResult, medoid_seed, range_search
+
+
+# ---------------------------------------------------------------------------
+# host-side metric helpers (small vectors; avoids device dispatch overhead)
+# ---------------------------------------------------------------------------
+def np_pair_dist(metric: str, x: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float32)
+    ys = np.asarray(ys, dtype=np.float32)
+    if ys.ndim == 1:
+        ys = ys[None, :]
+    if metric in ("l2", "sqeuclidean"):
+        d = ys - x[None, :]
+        sq = np.maximum(np.einsum("ij,ij->i", d, d), 0.0)
+        return sq if metric == "sqeuclidean" else np.sqrt(sq)
+    if metric == "ip":
+        return -(ys @ x)
+    if metric == "cos":
+        xn = x / max(np.linalg.norm(x), 1e-12)
+        yn = ys / np.maximum(np.linalg.norm(ys, axis=1, keepdims=True), 1e-12)
+        return 1.0 - yn @ xn
+    raise ValueError(metric)
+
+
+@dataclasses.dataclass
+class DEGParams:
+    """Paper Table 3 hyperparameters, plus the query-engine knobs every
+    search of the index inherits unless a call overrides them."""
+
+    degree: int = 20          # d
+    k_ext: int = 40
+    eps_ext: float = 0.3
+    # Alg. 4 refinement (k_opt, eps_opt, i_opt): inert until the refinement
+    # sweep is ported (ROADMAP A4); kept so a JAX index's params carry over
+    k_opt: int = 20
+    eps_opt: float = 0.001
+    i_opt: int = 5
+    scheme: str = "C"         # paper default: C for extension
+    rng_checks: bool = True   # Algorithm 2 during extension
+    optimize_new: bool = False
+    metric: str = "l2"
+    # Alg. 3 neighbor selection on the device: the next slice of the port
+    # (ROADMAP A4); True raises NotImplementedError until then, and so does
+    # an extend_block other than its default
+    device_extend: bool = True
+    extend_block: int = 16
+    expand_width: int = 1
+    hop_backend: str = "composed"     # "composed" | "fused"
+    visited_size: Optional[int] = None  # None = auto (0 unless fused hop)
+
+    def __post_init__(self):
+        if self.k_ext < self.degree:
+            raise ValueError("k_ext must be >= degree (paper Sec. 5.2)")
+        if self.extend_block != 16:
+            raise NotImplementedError(
+                "extend_block sizes the device Alg. 3 extension, the next "
+                "slice of the port (ROADMAP A4); leave it at 16")
+
+
+class DEGIndex:
+    """A Dynamic Exploration Graph over a growing set of vectors."""
+
+    def __init__(self, dim: int, params: DEGParams | None = None,
+                 capacity: int = 1024, device="cuda"):
+        self.params = params or DEGParams()
+        self.dim = dim
+        self.device = torch.device(device)
+        capacity = max(capacity, self.params.degree + 1)
+        self.vectors = np.zeros((capacity, dim), dtype=np.float32)
+        self._dev_vectors = torch.zeros((capacity, dim), dtype=torch.float32,
+                                        device=self.device)
+        self.builder: Optional[GraphBuilder] = None
+        self._pending: list[np.ndarray] = []   # points before K_{d+1} exists
+        self._rng = np.random.default_rng(0)
+        self._medoid: Optional[int] = None     # cached medoid_seed entry
+        # per-stage wall time of _insert_wave (candidate search vs vertex
+        # extension)
+        self.build_stats = {"search_s": 0.0, "extend_s": 0.0, "vertices": 0}
+
+    # -- sizes -------------------------------------------------------------
+    @property
+    def n(self) -> int:
+        return 0 if self.builder is None else self.builder.n
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    def grow(self, new_capacity: int) -> None:
+        if new_capacity <= self.capacity:
+            return
+        vecs = np.zeros((new_capacity, self.dim), dtype=np.float32)
+        vecs[: self.capacity] = self.vectors
+        self.vectors = vecs
+        self._dev_vectors = torch.tensor(vecs, device=self.device)
+        if self.builder is not None:
+            self.builder.grow(new_capacity)
+
+    # -- device sync ---------------------------------------------------------
+    def _put_rows(self, rows: np.ndarray, start: int) -> None:
+        self._medoid = None                    # vector set changed
+        self._dev_vectors[start : start + rows.shape[0]] = torch.as_tensor(
+            np.asarray(rows, np.float32)).to(self.device)
+
+    def medoid(self) -> int:
+        """Cached approximate-median entry vertex (paper Sec. 5.4),
+        invalidated whenever the indexed vector set changes."""
+        if self._medoid is None or self._medoid >= self.n:
+            self._medoid = medoid_seed(self._dev_vectors, self.n)
+        return self._medoid
+
+    def frozen(self) -> DEGraph:
+        """The device twin consumed by every search call: valid until the
+        next graph mutation + sync (the rows are updated in place); use
+        ``builder.freeze()`` for a snapshot that must survive mutations."""
+        return self.builder.device_graph()
+
+    # -- insertion -----------------------------------------------------------
+    def add(self, points: np.ndarray, wave_size: int = 1) -> None:
+        """Insert points (Alg. 3). ``wave_size>1`` enables bulk build."""
+        points = np.asarray(points, dtype=np.float32)
+        if points.ndim == 1:
+            points = points[None]
+        if self.n + len(self._pending) + points.shape[0] > self.capacity:
+            self.grow(max(2 * self.capacity,
+                          self.n + len(self._pending) + points.shape[0]))
+        d = self.params.degree
+        i = 0
+        # bootstrap: K_{d+1} complete graph (Sec. 5.1)
+        if self.builder is None:
+            take = min(d + 1 - len(self._pending), points.shape[0])
+            self._pending.extend(points[:take])
+            i = take
+            if len(self._pending) == d + 1:
+                init = np.stack(self._pending)
+                self.vectors[: d + 1] = init
+                self._put_rows(init, 0)
+                self.builder = complete_graph(
+                    init, d, self.capacity, self.params.metric, self.device)
+                self._pending = []
+        while i < points.shape[0]:
+            w = min(wave_size, points.shape[0] - i)
+            self._insert_wave(points[i : i + w])
+            i += w
+
+    def _insert_wave(self, pts: np.ndarray) -> None:
+        if self.params.device_extend:
+            raise NotImplementedError(
+                "device_extend=True: the device Alg. 3 extension "
+                "(core/extend.py + mrng_occlusion) is the next slice of the "
+                "port (ROADMAP A4); pass DEGParams(device_extend=False)")
+        W = pts.shape[0]
+        start = self.builder.n
+        self.vectors[start : start + W] = pts
+        self._put_rows(pts, start)
+        # one batched candidate search for the whole wave (pre-wave graph)
+        t0 = time.perf_counter()
+        seeds = np.full((W, 1), self._entry_vertex(), dtype=np.int32)
+        res = self.search_batch(pts, seeds, k=self.params.k_ext,
+                                eps=self.params.eps_ext)
+        ids = res.ids.cpu().numpy()
+        dists = res.dists.cpu().numpy()
+        t1 = time.perf_counter()
+        # the whole wave joins the graph first, as in the JAX package; a
+        # wave vertex only gains edges from its own extension, since every
+        # candidate of v lies below v
+        vs = [self.builder.add_vertex() for _ in range(W)]
+        assert vs[0] == start
+        for j, v in enumerate(vs):
+            new_edges = self._extend_vertex(v, pts[j], ids[j], dists[j])
+            self._post_insert(v, new_edges, ids[j])
+        t2 = time.perf_counter()
+        self.build_stats["search_s"] += t1 - t0
+        self.build_stats["extend_s"] += t2 - t1
+        self.build_stats["vertices"] += W
+
+    def _post_insert(self, v: int, new_edges, cand_ids) -> None:
+        if self.params.optimize_new:
+            raise NotImplementedError(
+                "optimize_new (Alg. 3 line 17) needs the edge optimization "
+                "of core/optimize.py, a later slice of the port (ROADMAP A4)")
+
+    def _entry_vertex(self) -> int:
+        return int(self._rng.integers(0, max(self.builder.n, 1)))
+
+    # -- Alg. 3 core: select d/2 (b, n) pairs -------------------------------
+    def _extend_vertex(self, v: int, vec: np.ndarray, cand_ids: np.ndarray,
+                       cand_dists: np.ndarray) -> list[int]:
+        """Host Alg. 3 selection of the d/2 (b, n) edge pairs of ``v``."""
+        b = self.builder
+        d = b.degree
+        metric = self.params.metric
+        cands: list[tuple[int, float]] = [
+            (int(c), float(x)) for c, x in zip(cand_ids, cand_dists)
+            if c != INVALID and c < v
+        ]
+        U: list[int] = []
+        U_d: list[float] = []
+
+        def select_n(bb: int, b_dist: float) -> Optional[tuple[int, float]]:
+            nbrs = [int(x) for x in b.neighbors(bb) if int(x) not in U]
+            if not nbrs:
+                return None
+            ws = np.array([b.edge_weight(bb, x) for x in nbrs])
+            scheme = self.params.scheme
+            if scheme == "C":
+                j = int(np.argmax(ws))
+            elif scheme == "B":
+                j = int(np.argmin(ws))
+            else:
+                nd = np_pair_dist(metric, vec, self.vectors[nbrs])
+                if scheme == "A":
+                    j = int(np.argmin(nd))
+                elif scheme == "D":
+                    j = int(np.argmin(nd - ws))
+                else:
+                    raise ValueError(self.params.scheme)
+            n_sel = nbrs[j]
+            n_dist = float(np_pair_dist(metric, vec, self.vectors[n_sel])[0])
+            return n_sel, n_dist
+
+        skip_rng = not self.params.rng_checks
+        exhausted_fallbacks = 0
+        while len(U) < d:
+            progressed = False
+            for bb, bd in cands:
+                if len(U) >= d:
+                    break
+                if bb in U:
+                    continue
+                if not skip_rng and not check_mrng_candidate(b, bb, bd, U, U_d):
+                    continue
+                sel = select_n(bb, bd)
+                if sel is None:
+                    continue
+                n_sel, n_dist = sel
+                b.remove_edge(bb, n_sel)
+                U.extend((bb, n_sel))
+                U_d.extend((bd, n_dist))
+                progressed = True
+            if len(U) >= d:
+                break
+            if not skip_rng:
+                skip_rng = True      # phase 2 (Alg. 3 line 14)
+                continue
+            if not progressed:
+                # candidate list exhausted — widen with exact nearest actives
+                exhausted_fallbacks += 1
+                if exhausted_fallbacks > 3:
+                    raise RuntimeError(
+                        f"cannot complete neighborhood for vertex {v}")
+                cands = self._exact_candidates(vec, set(U), v)
+        for u, w in zip(U, U_d):
+            b.add_edge(v, u, w)
+        return U
+
+    def _exact_candidates(self, vec, exclude, v):
+        """Widened pool for an exhausted extension: every vertex below the
+        one being inserted."""
+        ds = np_pair_dist(self.params.metric, vec, self.vectors[:v])
+        order = np.argsort(ds)
+        return [(int(i), float(ds[i])) for i in order if int(i) not in exclude]
+
+    # -- queries --------------------------------------------------------------
+    def search_batch(self, queries: np.ndarray,
+                     seed_ids: Optional[np.ndarray] = None,
+                     exclude: Optional[np.ndarray] = None, *, k: int,
+                     eps: float = 0.1, beam_width: Optional[int] = None,
+                     expand_width: Optional[int] = None,
+                     visited_size: Optional[int] = None,
+                     hop_backend: Optional[str] = None,
+                     hop_budget: Optional[np.ndarray] = None) -> SearchResult:
+        """The one device entry point every query path funnels through:
+        plain searches, exploration sessions and the insert waves.
+
+        ``seed_ids`` (B, S) / ``exclude`` (B, X) go straight into the beam
+        engine.  ``expand_width`` / ``visited_size`` / ``hop_backend``
+        default to the index's ``DEGParams``; ``hop_budget`` (B,) caps each
+        lane's expansions."""
+        E = self.params.expand_width if expand_width is None else expand_width
+        hb = self.params.hop_backend if hop_backend is None else hop_backend
+        vs = self.params.visited_size if visited_size is None else visited_size
+        q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32))
+                            ).to(self.device)
+        if seed_ids is None:
+            seeds = torch.full((q.shape[0], 1), self.medoid(),
+                               dtype=torch.int32, device=self.device)
+        else:
+            seeds = torch.as_tensor(np.asarray(seed_ids, np.int32)
+                                    ).to(self.device)
+            if seeds.ndim == 1:
+                seeds = seeds[:, None]
+
+        def dev_i32(x):
+            return None if x is None else torch.as_tensor(
+                np.asarray(x, np.int32)).to(self.device)
+
+        return range_search(self.frozen(), self._dev_vectors, q, seeds,
+                            k=k, eps=eps, beam_width=beam_width,
+                            metric=self.params.metric, exclude=dev_i32(exclude),
+                            expand_width=E, visited_size=vs, hop_backend=hb,
+                            hop_budget=dev_i32(hop_budget))
+
+    def search(self, queries: np.ndarray, k: int, eps: float = 0.1,
+               beam_width: Optional[int] = None, seed: Optional[int] = None,
+               expand_width: Optional[int] = None,
+               visited_size: Optional[int] = None,
+               hop_backend: Optional[str] = None) -> SearchResult:
+        if seed is None:
+            seed = self.medoid()
+        q = np.atleast_2d(np.asarray(queries, np.float32))
+        seeds = np.full((q.shape[0], 1), seed, dtype=np.int32)
+        return self.search_batch(q, seeds, k=k, eps=eps,
+                                 beam_width=beam_width,
+                                 expand_width=expand_width,
+                                 visited_size=visited_size,
+                                 hop_backend=hop_backend)
+
+    def explore(self, seed_vertices: Sequence[int], k: int, eps: float = 0.1,
+                exclude: Optional[np.ndarray] = None,
+                beam_width: Optional[int] = None) -> SearchResult:
+        """Exploration queries (paper Sec. 6.7): seed == query vertex; the
+        seed (and optionally already-seen vertices) are excluded from
+        results."""
+        sv = np.asarray(seed_vertices, dtype=np.int32).reshape(-1)
+        if exclude is None:
+            excl = sv[:, None]
+        else:
+            excl = np.concatenate([sv[:, None], np.asarray(exclude, np.int32)],
+                                  axis=1)
+        return self.search_batch(self.vectors[sv], sv[:, None], excl,
+                                 k=k, eps=eps, beam_width=beam_width)
+
+
+def build_deg(vectors: np.ndarray, params: DEGParams | None = None,
+              wave_size: int = 1, capacity: Optional[int] = None,
+              device="cuda") -> DEGIndex:
+    """One-shot construction of a DEG over ``vectors``."""
+    vectors = np.asarray(vectors, dtype=np.float32)
+    idx = DEGIndex(vectors.shape[1], params,
+                   capacity=capacity or vectors.shape[0], device=device)
+    idx.add(vectors, wave_size=wave_size)
+    return idx

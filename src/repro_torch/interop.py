@@ -1,0 +1,75 @@
+"""Carry state between the JAX package and the port as numpy arrays.
+
+:func:`graph_from_numpy` / :func:`index_from_numpy` turn a JAX
+``DEGIndex``'s state (adjacency, weights, n, vectors, params) into the
+port's, so both packages search the same graph.  The ``*_to_numpy``
+functions bring the port's tensors back, so tests compare with
+``np.testing`` and never tensor against array.  Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.beam import BeamState
+from repro_torch.core.build import DEGIndex, DEGParams
+from repro_torch.core.graph import DEGraph, GraphBuilder
+from repro_torch.core.search import SearchResult
+
+# the JAX package's hop_backend values -> the port's
+HOP_BACKEND = {"jnp": "composed", "pallas": "fused",
+               "composed": "composed", "fused": "fused"}
+
+
+def graph_from_numpy(adjacency, weights, n, device="cuda") -> DEGraph:
+    return DEGraph(
+        adjacency=torch.tensor(np.asarray(adjacency, np.int32), device=device),
+        weights=torch.tensor(np.asarray(weights, np.float32), device=device),
+        n=int(n))
+
+
+def params_from_dict(params: dict) -> DEGParams:
+    """``DEGParams`` from a JAX ``dataclasses.asdict(DEGParams)``; fields
+    the port does not have are an error, not silently dropped."""
+    p = dict(params)
+    if "hop_backend" in p:
+        p["hop_backend"] = HOP_BACKEND[p["hop_backend"]]
+    names = {f.name for f in dataclasses.fields(DEGParams)}
+    unknown = sorted(set(p) - names)
+    if unknown:
+        raise ValueError(f"DEGParams has no field(s) {unknown}")
+    return DEGParams(**p)
+
+
+def index_from_numpy(vectors, adjacency, weights, n, params: dict,
+                     device="cuda") -> DEGIndex:
+    """A port ``DEGIndex`` holding the given graph and vector rows."""
+    vectors = np.asarray(vectors, np.float32)
+    adjacency = np.asarray(adjacency, np.int32)
+    p = params_from_dict(params)
+    idx = DEGIndex(vectors.shape[1], p, capacity=adjacency.shape[0],
+                   device=device)
+    idx.vectors[: vectors.shape[0]] = vectors
+    idx._put_rows(vectors, 0)
+    idx.builder = GraphBuilder(adjacency.shape[0], p.degree, device)
+    idx.builder.load(adjacency, np.asarray(weights, np.float32), int(n))
+    return idx
+
+
+def graph_to_numpy(graph: DEGraph) -> dict:
+    return {"adjacency": graph.adjacency.cpu().numpy(),
+            "weights": graph.weights.cpu().numpy(), "n": int(graph.n)}
+
+
+def beam_state_to_numpy(state: BeamState) -> dict:
+    out = {f.name: getattr(state, f.name)
+           for f in dataclasses.fields(BeamState)}
+    return {k: None if v is None else v.cpu().numpy() for k, v in out.items()}
+
+
+def result_to_numpy(res: SearchResult) -> dict:
+    out = {f.name: getattr(res, f.name)
+           for f in dataclasses.fields(SearchResult)}
+    return {k: None if v is None else v.cpu().numpy() for k, v in out.items()}
