@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of DEG on one NVIDIA card: build its CUDA kernels,
 hold each against its plain PyTorch version, build an index at the
-paper's audio size, and serve queries and exploration sessions from it.
+paper's audio size, serve queries and exploration sessions from it, refine
+it, and serve again.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -10,21 +11,32 @@ Phases (any failure raises and exits non-zero):
   1. header: the card's name and power limit, kernel build seconds;
   2. each kernel against its plain version at the main path's shapes:
      serving (B=256, d=20, m=192, L=30, E in {1, 4}, V=1024), an insert
-     wave's search (B=64, L=80) and an exploration hop (B=8, L=42), with
+     wave's search (B=64, L=80), an exploration hop (B=8, L=42), an extend
+     block's lune test (B=16, K=40, and the build's last block), a refine
+     chunk's (B=16, K=20), and refinement's searches (L=40: a chunk's
+     batched first search, B=REFINE_LANES, and a live one, B=1), with
      times;
   3. build: make_dataset("manifold", n, 10000, 192) under the paper's
-     audio parameters (degree 20, k_ext 40, eps_ext 0.3), host extension,
-     wave_size=64, then the Table-1 invariants;
+     audio parameters (degree 20, k_ext 40, eps_ext 0.3), the device
+     extension in blocks of 16, wave_size=64, then the Table-1
+     invariants; the idle share of one wave search and of one extend
+     block; then the host extension on a build of N_HOST vertices;
   4. serve: 10,000 queries in batches of 256 (k=10, eps=0.1) under the
      "classic" and "multi-e4-fused" presets, recall@10 against exact k-NN
-     on the card, and 8 exploration sessions of 4 hops; then 512 of the
-     queries, one wave search and every exploration hop again through
-     the plain versions;
-  5. the kernels' JSON line, then the final JSON line.
+     on the card, and 8 exploration sessions of 4 hops;
+  5. refine: Alg. 5 over REFINE_VERTICES vertices under the audio
+     config's k_opt, eps_opt and i_opt, the average neighbor distance
+     (Eq. 4) before and after, Table-1, the idle share of one chunk; then
+     "classic" served again on the refined graph;
+  6. the main path again through the plain versions: 512 queries of each
+     preset, one wave search, every exploration hop, one refine chunk
+     (equal adjacency and improved edges), and a device-extend build of
+     N_HOST vertices with the kernels and with the plain versions;
+  7. the kernels' JSON line, then the final JSON line.
 
-The kernels' launch counters read the build, the timed serving loops and
-the exploration sessions only; warm-ups, profiled reruns and the runs of
-the plain versions are not counted.
+The kernels' launch counters read the builds, the timed serving loops, the
+exploration sessions and the refinement only; warm-ups, profiled reruns
+and the runs of the plain versions are not counted.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.  It imports nothing of
@@ -55,6 +67,14 @@ TIMING_REPS = 50
 N_AUDIO, DIM, N_QUERIES, BATCH = 53_387, 192, 10_000, 256
 K, EPS = 10, 0.1                   # serving: recall@10 at eps 0.1
 K_EXT, WAVE = 40, 64               # the audio config's k_ext; insert wave
+K_OPT = 20                         # the audio config's k_opt
+EXTEND_BLOCK, CHUNK = 16, 16       # DEGParams.extend_block; refine chunk
+REFINE_LANES = 75                  # a chunk's edge tasks (about 4.7 per vertex)
+N_HOST = 4_000                     # the host-extension and comparison builds
+# 0.5% of the audio graph: refinement costs about 0.5 s per vertex on one
+# H100 (single-lane host hop loops, PERF.md), so 1,024 vertices would take
+# the run to within a slow host of 900 s
+REFINE_VERTICES = 256
 EXPLORE_SESSIONS, EXPLORE_HOPS = 8, 4
 PHASE2 = dict(B=256, d=20, m=192, L=30, V=1024)
 RECALL_FLOOR = 0.90
@@ -65,6 +85,7 @@ KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
     "beam_merge": "src/repro/kernels/beam_merge/beam_merge.py:189",
     "fused_hop": "src/repro/kernels/fused_hop/fused_hop.py:114",
+    "mrng_occlusion": "src/repro/kernels/mrng_occlusion/mrng_occlusion.py:50",
 }
 
 
@@ -75,14 +96,18 @@ def log(*a):
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def device_profile(fn, reps: int = 1) -> list:
+def device_profile(fn, reps: int = 1, host: bool = True) -> list:
     """Run ``fn`` ``reps`` times under torch.profiler: every kernel, copy
-    and fill on the device as (name, summed ms, calls), most time first."""
+    and fill on the device as (name, summed ms, calls), most time first.
+    ``host=False`` records device activity only: much cheaper on a long
+    run, but on the H100 it missed some of 50 back-to-back launches of a
+    few microseconds, which the kernel timings must count exactly."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host
+    with profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -127,12 +152,25 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
 
 def idle_share(fn, wall_ms: float, what: str) -> None:
     """Print the device time of one call of ``fn`` (profiled) against its
-    unprofiled wall time, and the kernels that took the most of it."""
-    rows = device_profile(fn)
+    unprofiled wall time, and the kernels that took the most of it.
+    Host operations are not recorded: on a refine chunk's hundred
+    thousand launches that costs minutes."""
+    rows = device_profile(fn, host=False)
     dev_ms = sum(r[1] for r in rows)
     log(f"  {what}: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall, "
         f"idle share {1 - dev_ms / wall_ms:.4f}; top: " + "; ".join(
             f"{name[:40]} {ms:.3f} ms x{n}" for name, ms, n in rows[:5]))
+
+
+def sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def expect_launches(kernel: str, got: int, want: int, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{got} {kernel} launches for {want} {what}")
 
 
 def kernel_ms(t: dict) -> float:
@@ -291,16 +329,74 @@ def check_fused_hop(inp, device, E) -> dict:
                 tol="ids/nbr_ids/evals exact outside 1e-6 of dmax; rtol 1e-5")
 
 
-def phase2(device) -> dict:
+def check_mrng_occlusion(inp, device, B, K) -> dict:
+    """The lune test at (B, K, d): ids from N_AUDIO rows with INVALID and
+    out-of-range slots, weights within 20% of the true distances and each
+    candidate distance at the median of its row's max(dist, w), so about
+    half the flags are set."""
+    import torch
+    from repro_torch.kernels.mrng_occlusion import ops
+
+    rng, d, m, N = inp["rng"], PHASE2["d"], PHASE2["m"], inp["N"]
+    ids = rng.integers(0, N, size=(B, K, d)).astype(np.int32)
+    ids[rng.random((B, K, d)) < 0.05] = INVALID
+    ids[0, 0, :2] = [N, N + 7]                              # clipped ids
+    ids = torch.tensor(ids, device=device)
+    v, q = inp["vectors"], inp["queries"][:B]
+    nd0, _ = ops.mrng_occlusion(v, ids, q, torch.zeros((B, K), device=device),
+                                torch.zeros((B, K, d), device=device),
+                                impl="ref")
+    w = (nd0 * torch.tensor(rng.uniform(0.8, 1.2, size=(B, K, d)).astype(
+        np.float32), device=device)).contiguous()
+    cd = torch.quantile(torch.maximum(nd0, w), 0.5, dim=2).contiguous()
+    err = 0.0
+    for metric in ("l2", "sqeuclidean"):
+        got = ops.mrng_occlusion(v, ids, q, cd, w, metric=metric)
+        want = ops.mrng_occlusion(v, ids, q, cd, w, metric=metric,
+                                  impl="ref")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        # a flag whose two sides lie within 1e-5 (relative) may fall either
+        # way under another summation order; every other flag must agree
+        border = ((cd[:, :, None] - torch.maximum(want[0], w)).abs()
+                  <= 1e-5 * cd[:, :, None].abs())
+        if not bool(((got[1] == want[1]) | border).all()):
+            raise AssertionError(f"mrng_occlusion ({metric}, B={B} K={K}): "
+                                 "occlusion flags differ off the border")
+        if metric == "l2":
+            err = float((got[0] - want[0]).abs().max())
+            n_set = int(want[1].sum())
+    t = time_call(lambda: ops.mrng_occlusion(v, ids, q, cd, w),
+                  "mrng_occlusion_kernel")
+    tp = time_call(lambda: ops.mrng_occlusion(v, ids, q, cd, w, impl="ref"))
+    rows = torch.unique(ids.clamp(0, N - 1)).numel()
+    P = B * K * d
+    nb = rows * m * 4 + B * m * 4 + B * K * 4 + P * (4 + 4 + 4 + 1)
+    bms, by = bound_ms(nb, P * (3 * m + 2))
+    return dict(name="mrng_occlusion", max_abs_err=err, t=t, tp=tp, tl=None,
+                bound_ms=bms, bound_by=by,
+                shape=f"B={B} K={K} d={d} m={m} f32 l2, {n_set} of {P} set",
+                tol="dists rtol 1e-5; flags equal off a 1e-5 border")
+
+
+def last_block(n: int, degree: int) -> int:
+    """Lanes of the last extend block of a build of ``n`` vertices: the
+    first degree + 1 form the initial graph, the rest come in waves."""
+    return (n - degree - 1) % WAVE % EXTEND_BLOCK or EXTEND_BLOCK
+
+
+def phase2(device, n_build=N_AUDIO) -> dict:
     from repro_torch.core.beam import default_beam_width
 
     inp = phase2_inputs(device)
     B, d, L = PHASE2["B"], PHASE2["d"], PHASE2["L"]
     # the other shapes the main path gives the kernels: an insert wave's
-    # search (k = k_ext), and the last hop of an exploration session, whose
-    # exclude list holds the seed twice plus 3 hops of k results
+    # search (k = k_ext), the last hop of an exploration session, whose
+    # exclude list holds the seed twice plus 3 hops of k results, and
+    # refinement's searches (k = k_opt): a chunk's batched first search
+    # and the single-lane live searches of Alg. 4
     L_wave = default_beam_width(K_EXT, d, 1)
     L_explore = default_beam_width(K, d, 1, 2 + (EXPLORE_HOPS - 1) * K)
+    L_opt = default_beam_width(K_OPT, d, 2)
     results = [check_gather_dist(inp, device, B),
                check_beam_merge(inp, device, B, L, d),
                check_beam_merge(inp, device, B, L, 4 * d),
@@ -309,7 +405,15 @@ def phase2(device) -> dict:
                check_gather_dist(inp, device, WAVE),
                check_beam_merge(inp, device, WAVE, L_wave, d),
                check_gather_dist(inp, device, EXPLORE_SESSIONS),
-               check_beam_merge(inp, device, EXPLORE_SESSIONS, L_explore, d)]
+               check_beam_merge(inp, device, EXPLORE_SESSIONS, L_explore, d),
+               check_mrng_occlusion(inp, device, EXTEND_BLOCK, K_EXT),
+               check_mrng_occlusion(inp, device, CHUNK, d),
+               check_mrng_occlusion(inp, device, last_block(n_build, d),
+                                    K_EXT),
+               check_gather_dist(inp, device, REFINE_LANES),
+               check_beam_merge(inp, device, REFINE_LANES, L_opt, d),
+               check_gather_dist(inp, device, 1),
+               check_beam_merge(inp, device, 1, L_opt, d)]
     for r in results:
         tl = r["tl"]
         log(f"phase2 {r['name']} [{r['shape']}] ok ({r['tol']}): "
@@ -321,9 +425,10 @@ def phase2(device) -> dict:
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
             f"max_abs_err {r['max_abs_err']:.3g}")
     # the JSON rows carry the main path's shapes: the classic hop's merge
-    # (C = d) and the fused preset's hop (E = 4)
+    # (C = d), the fused preset's hop (E = 4) and an extend block's lune
+    # test (K = k_ext), the build's launches
     return {"gather_dist": results[0], "beam_merge": results[1],
-            "fused_hop": results[4]}
+            "fused_hop": results[4], "mrng_occlusion": results[9]}
 
 
 # ---------------------------------------------------------------------------
@@ -341,37 +446,55 @@ def counted(ops: dict, total: dict, fn, *args, **kwargs):
     return out
 
 
-def build_phase(n: int, n_query: int, device, count=None):
+def extend_blocks(inserted: int) -> int:
+    """Extend-block passes of a build that inserted ``inserted`` vertices
+    in waves of WAVE: one per EXTEND_BLOCK vertices of each wave."""
+    return ((inserted // WAVE) * -(-WAVE // EXTEND_BLOCK)
+            + -(-(inserted % WAVE) // EXTEND_BLOCK))
+
+
+def build_phase(n: int, n_query: int, device, count=None, *,
+                device_extend=True, tag="phase3"):
+    """Build over the manifold data at the audio config; Table-1 after.
+    Returns the index, the base vectors, the queries and the launches of
+    ``mrng_occlusion`` in the build."""
     from repro_torch.configs.deg import DEG_PAPER_CONFIGS
     from repro_torch.core.build import build_deg
     from repro_torch.core.invariants import check_table1
     from repro_torch.data.synthetic import make_dataset
-
-    import torch
+    from repro_torch.kernels.mrng_occlusion import ops as occ_ops
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
     t0 = time.perf_counter()
     base, queries = make_dataset("manifold", n, n_query, DIM, seed=0)
-    log(f"phase3 data: manifold base {base.shape} queries {queries.shape} "
+    log(f"{tag} data: manifold base {base.shape} queries {queries.shape} "
         f"in {time.perf_counter() - t0:.2f} s")
     params = dataclasses.replace(DEG_PAPER_CONFIGS["audio"],
-                                 device_extend=False)
+                                 device_extend=device_extend)
     assert params.k_ext == K_EXT, "phase 2 checks the wave shape at K_EXT"
+    assert params.extend_block == EXTEND_BLOCK
     t0 = time.perf_counter()
     idx = count(build_deg, base, params, wave_size=WAVE, device=device)
-    if idx.device.type == "cuda":
-        torch.cuda.synchronize()
+    sync()
     secs = time.perf_counter() - t0
+    occ = occ_ops.launches
     st = idx.build_stats
-    log(f"phase3 build: n={idx.n} degree={params.degree} k_ext="
-        f"{params.k_ext} eps_ext={params.eps_ext} wave_size={WAVE}: "
-        f"{secs:.2f} s (search {st['search_s']:.2f} s, host extend "
-        f"{st['extend_s']:.2f} s, {st['vertices']} vertices)")
+    inserted = st["vertices"]
+    blocks = extend_blocks(inserted)
+    mode = "device" if device_extend else "host"
+    log(f"{tag} build: n={idx.n} degree={params.degree} k_ext="
+        f"{params.k_ext} eps_ext={params.eps_ext} wave_size={WAVE} "
+        f"{mode} extension: {secs:.2f} s (search_s {st['search_s']:.2f}, "
+        f"extend_s {st['extend_s']:.2f}, {inserted} vertices); "
+        f"mrng_occlusion launches {occ}"
+        + (f" for {blocks} extend blocks" if device_extend else ""))
+    if device_extend:
+        expect_launches("mrng_occlusion", occ, blocks, "extend blocks")
     inv = check_table1(idx.builder)
-    log(f"phase3 table-1: {inv}")
+    log(f"{tag} table-1: {inv}")
     if not all(inv.values()):
         raise AssertionError(f"Table-1 invariants broken: {inv}")
-    return idx, base, queries
+    return idx, base, queries, occ
 
 
 def wave_search(idx, pts) -> np.ndarray:
@@ -383,7 +506,10 @@ def wave_search(idx, pts) -> np.ndarray:
 
 
 def wave_phase(idx, queries) -> np.ndarray:
-    """Time and profile one insert wave's search; returns its ids."""
+    """Time and profile one insert wave's search and one extend block's
+    selection pass on the built graph; returns the wave's ids."""
+    from repro_torch.core.extend import extend_wave
+
     pts = queries[:WAVE]
     ids = wave_search(idx, pts)                                  # warm-up
     t0 = time.perf_counter()
@@ -391,6 +517,26 @@ def wave_phase(idx, queries) -> np.ndarray:
     idle_share(lambda: wave_search(idx, pts),
                (time.perf_counter() - t0) * 1e3,
                f"phase3 one wave search ({WAVE} lanes)")
+    # the block's candidates as its wave search finds them; the lanes take
+    # the ids after the last vertex, so every candidate is eligible, and
+    # the pass reads the graph without changing it
+    blk = pts[:EXTEND_BLOCK]
+    res = idx.search_batch(blk, np.zeros((EXTEND_BLOCK, 1), np.int32),
+                           k=idx.params.k_ext, eps=idx.params.eps_ext)
+
+    def select():
+        return extend_wave(idx, blk, res.ids, res.dists, idx.n)
+
+    select()                                                     # warm-up
+    t0 = time.perf_counter()
+    select()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = idx.build_stats
+    per_block = st["extend_s"] * 1e3 / extend_blocks(st["vertices"])
+    log(f"phase3 extend: {per_block:.3f} ms of extend_s per block of "
+        f"{EXTEND_BLOCK} (selection pass, apply, host completion)")
+    idle_share(select, wall, f"phase3 one extend block's selection pass "
+               f"({EXTEND_BLOCK} lanes, K={idx.params.k_ext})")
     return ids
 
 
@@ -401,9 +547,11 @@ def plain_kernels():
     from repro_torch.kernels.beam_merge import ops as bm
     from repro_torch.kernels.fused_hop import ops as fh
     from repro_torch.kernels.gather_dist import ops as gd
+    from repro_torch.kernels.mrng_occlusion import ops as mo
 
     saved = [(m, name, getattr(m, name)) for m, name in
-             ((bm, "beam_merge"), (fh, "fused_hop"), (gd, "gather_dist"))]
+             ((bm, "beam_merge"), (fh, "fused_hop"), (gd, "gather_dist"),
+              (mo, "mrng_occlusion"))]
     try:
         for m, name, fn in saved:
             setattr(m, name, functools.partial(fn, impl="ref"))
@@ -428,41 +576,40 @@ def _serve(idx, queries, preset, k, eps, batch):
 
 
 def serve_phase(idx, base, queries, device, count=None, *, k=K, eps=EPS,
-                batch=BATCH) -> dict:
-    """Serve every query under both presets; returns each preset's result
-    and, under "gt", the exact k-NN ids.  Only the timed loops go through
-    ``count``."""
-    import torch
+                batch=BATCH, gt=None, presets=("classic", "multi-e4-fused"),
+                tag="phase4") -> dict:
+    """Serve every query under each preset; returns each preset's result
+    and, under "gt", the exact k-NN ids (computed unless given).  Only the
+    timed loops go through ``count``."""
     from repro_torch.configs.deg import SEARCH_PRESETS
     from repro_torch.core.distances import exact_knn_batched
     from repro_torch.core.metrics import recall_at_k
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
-    t0 = time.perf_counter()
-    _, gt = exact_knn_batched(queries, base, k, device=device)
-    log(f"phase4 exact k-NN of {len(queries)} queries on the device: "
-        f"{time.perf_counter() - t0:.2f} s")
+    if gt is None:
+        t0 = time.perf_counter()
+        _, gt = exact_knn_batched(queries, base, k, device=device)
+        log(f"{tag} exact k-NN of {len(queries)} queries on the device: "
+            f"{time.perf_counter() - t0:.2f} s")
     out = {"gt": gt}
-    for name in ("classic", "multi-e4-fused"):
+    for name in presets:
         preset = SEARCH_PRESETS[name]
         _serve(idx, queries[:batch], preset, k, eps, batch)       # warm-up
-        if device != "cpu":
-            torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         ids, hops, evals = count(_serve, idx, queries, preset, k, eps, batch)
         secs = time.perf_counter() - t0
         rec = recall_at_k(ids, gt)
-        log(f"phase4 serve {name}: {len(queries)} queries in {secs:.3f} s = "
+        log(f"{tag} serve {name}: {len(queries)} queries in {secs:.3f} s = "
             f"{len(queries) / secs:.1f} QPS, recall@{k} {rec:.4f}, "
             f"mean hops {hops.mean():.2f}, mean evals {evals.mean():.1f}")
         if rec < RECALL_FLOOR:
             raise AssertionError(f"{name}: recall@{k} {rec:.4f} < "
                                  f"{RECALL_FLOOR}")
-        if device != "cpu":
-            idle_share(lambda: _serve(idx, queries[:batch], preset, k, eps,
-                                      batch),
-                       secs * 1e3 * batch / len(queries),
-                       f"phase4 {name} one batch of {batch}")
+        idle_share(lambda: _serve(idx, queries[:batch], preset, k, eps,
+                                  batch),
+                   secs * 1e3 * batch / len(queries),
+                   f"{tag} {name} one batch of {batch}")
         out[name] = dict(ids=ids, recall=rec, qps=len(queries) / secs,
                          hops=float(hops.mean()), evals=float(evals.mean()))
     return out
@@ -495,9 +642,118 @@ def explore_phase(idx, *, sessions=EXPLORE_SESSIONS, hops=EXPLORE_HOPS, k=K,
     return calls
 
 
+def refine_phase(idx, queries, gt, device, count=None, *,
+                 vertices=REFINE_VERTICES) -> dict:
+    """Alg. 5 over ``vertices`` vertices drawn from seed 0, under the
+    index's k_opt / eps_opt / i_opt; then "classic" served again on the
+    refined graph against the same exact k-NN."""
+    from repro_torch.core.invariants import check_table1
+    from repro_torch.core.metrics import average_neighbor_distance
+    from repro_torch.kernels.mrng_occlusion import ops as occ_ops
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    p = idx.params
+    assert p.k_opt == K_OPT, "phase 2 checks refinement's shapes at K_OPT"
+    nd0 = average_neighbor_distance(idx.builder)
+    tasks0 = idx.refine_stats["edge_tasks"]
+    t0 = time.perf_counter()
+    improved = count(idx.refine, vertices, seed=0)
+    sync()
+    secs = time.perf_counter() - t0
+    occ = occ_ops.launches
+    tasks = idx.refine_stats["edge_tasks"] - tasks0
+    nd1 = average_neighbor_distance(idx.builder)
+    chunks = -(-vertices // CHUNK)
+    log(f"phase5 refine: {vertices} vertices (k_opt={p.k_opt} eps_opt="
+        f"{p.eps_opt} i_opt={p.i_opt}) in {secs:.2f} s: {tasks} edge tasks, "
+        f"{improved} improved edges; average neighbor distance (Eq. 4) "
+        f"{nd0:.6f} -> {nd1:.6f}; mrng_occlusion launches {occ} for "
+        f"{chunks} chunks")
+    expect_launches("mrng_occlusion", occ, chunks, "refine chunks")
+    if improved == 0 or not nd1 < nd0:
+        raise AssertionError(f"refinement improved {improved} edges, "
+                             f"Eq. 4 {nd0} -> {nd1}")
+    inv = check_table1(idx.builder)
+    log(f"phase5 table-1 after refinement: {inv}")
+    if not all(inv.values()):
+        raise AssertionError(f"Table-1 invariants broken: {inv}")
+    refine_chunk_phase(idx)
+    return serve_phase(idx, None, queries, device, count, gt=gt,
+                       presets=("classic",), tag="phase5 refined")
+
+
+def refine_chunk_phase(idx) -> None:
+    """One refine chunk of CHUNK vertices (drawn from seed 1), run three
+    times from the same graph: with the kernels (timed), through the plain
+    versions, which must leave the same adjacency and improve the same
+    number of edges, and under the profiler for its idle share.  The graph
+    is restored after each run, so the phase leaves it as it was."""
+    from repro_torch.core.optimize import refine_sweep
+
+    b = idx.builder
+    adj, w, n = b.adjacency.copy(), b.weights.copy(), b.n
+    verts = np.random.default_rng(1).integers(0, n, CHUNK)
+    p = idx.params
+
+    def chunk():
+        return refine_sweep(idx, verts, i_opt=p.i_opt, k_opt=p.k_opt,
+                            eps_opt=p.eps_opt, chunk=CHUNK)
+
+    def restore():
+        b.load(adj, w, n)
+        b.device_graph()
+        sync()
+
+    stats = dict(idx.refine_stats)
+    t0 = time.perf_counter()
+    improved = chunk()
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    got_adj, got_w = b.adjacency[:n].copy(), b.weights[:n].copy()
+    restore()
+    with plain_kernels():
+        improved_plain = chunk()
+    same = float((b.adjacency[:n] == got_adj).mean())
+    log(f"phase6 plain vs kernels one refine chunk ({CHUNK} vertices): "
+        f"{improved_plain} vs {improved} improved edges, adjacency slots "
+        f"equal {same:.4%}")
+    if improved_plain != improved or same < 1.0:
+        raise AssertionError("the refine chunk through the plain versions "
+                             "differs from the kernels'")
+    np.testing.assert_allclose(b.weights[:n], got_w, rtol=1e-5)
+    restore()
+    idle_share(chunk, wall, f"phase5 one refine chunk ({CHUNK} vertices)")
+    restore()
+    idx.refine_stats = stats
+
+
+def compare_extend_phase(device, n=N_HOST) -> float:
+    """A device-extend build of ``n`` vertices with the kernels and with
+    the plain versions: the share of vertices with equal neighbor sets."""
+    from repro_torch.configs.deg import DEG_PAPER_CONFIGS
+    from repro_torch.core.build import build_deg
+    from repro_torch.data.synthetic import make_dataset
+
+    base, _ = make_dataset("manifold", n, 16, DIM, seed=0)
+    params = DEG_PAPER_CONFIGS["audio"]
+    got = build_deg(base, params, wave_size=WAVE, device=device).builder
+    with plain_kernels():
+        want = build_deg(base, params, wave_size=WAVE, device=device).builder
+    same = np.mean([set(got.neighbors(v).tolist())
+                    == set(want.neighbors(v).tolist()) for v in range(n)])
+    slots = float((got.adjacency[:n] == want.adjacency[:n]).mean())
+    log(f"phase6 plain vs kernels device-extend build (n={n}): neighbor "
+        f"sets equal for {same:.4%} of vertices, adjacency slots equal "
+        f"{slots:.4%}")
+    if same < AGREE_FLOOR:
+        raise AssertionError(f"device-extend build: the plain versions "
+                             f"agree on only {same:.4f} of vertices")
+    return float(same)
+
+
 def _agree(what: str, ids: np.ndarray, want: np.ndarray) -> float:
     agree = float((ids == want).mean())
-    log(f"phase4 plain vs kernels {what}: ids equal on {agree:.4%} of "
+    log(f"phase6 plain vs kernels {what}: ids equal on {agree:.4%} of "
         f"{ids.size} slots")
     if agree < AGREE_FLOOR:
         raise AssertionError(f"{what}: the plain versions agree on only "
@@ -556,6 +812,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.beam_merge import ops as bm_ops
     from repro_torch.kernels.fused_hop import ops as fh_ops
     from repro_torch.kernels.gather_dist import ops as gd_ops
+    from repro_torch.kernels.mrng_occlusion import ops as mo_ops
 
     device = "cuda"
     t_start = time.perf_counter()
@@ -574,22 +831,38 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 2
-    checks = phase2(device)
+    checks = phase2(device, args.n)
 
-    # phases 3-4: the main path (build, timed serving, exploration), each
-    # piece counted on its own; measurement reruns go uncounted
-    ops = {"gather_dist": gd_ops, "beam_merge": bm_ops, "fused_hop": fh_ops}
+    # phases 3-5: the main path (builds, timed serving, exploration,
+    # refinement), each piece counted on its own; measurement reruns and
+    # the plain-version comparisons (phase 6) go uncounted
+    ops = {"gather_dist": gd_ops, "beam_merge": bm_ops, "fused_hop": fh_ops,
+           "mrng_occlusion": mo_ops}
     launches = dict.fromkeys(ops, 0)
     count = functools.partial(counted, ops, launches)
-    idx, base, queries = build_phase(args.n, args.queries, device, count)
+    def stamp(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
+    stamp("phases 1-2")
+    idx, base, queries, _ = build_phase(args.n, args.queries, device, count)
     wave_ids = wave_phase(idx, queries)
+    build_phase(N_HOST, 16, device, count, device_extend=False,
+                tag="phase3 host-extension")
+    stamp("phase 3")
     served = serve_phase(idx, base, queries, device, count)
     explore_calls = count(explore_phase, idx)
+    stamp("phase 4")
+    # compare on the graph that served, before refinement changes it
+    compare_plain_phase(idx, queries, served, wave_ids, explore_calls)
+    stamp("phase 6, serving part")
+    refine_phase(idx, queries, served["gt"], device, count)
+    stamp("phase 5")
     log(f"main-path launches: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
-    compare_plain_phase(idx, queries, served, wave_ids, explore_calls)
+    compare_extend_phase(device)
+    stamp("phase 6, build part")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     rows = []

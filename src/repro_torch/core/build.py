@@ -1,4 +1,5 @@
-"""Incremental DEG construction (paper Algorithm 3 + Sec. 5.2).
+"""Incremental DEG construction (paper Algorithm 3 + Sec. 5.2) and
+continuous refinement (Alg. 5).
 
 :class:`DEGIndex` is the user-facing object: it owns the host-side mutable
 graph (:class:`GraphBuilder`), a host mirror of the vectors, and a device
@@ -8,13 +9,17 @@ host-orchestrated around batched range searches on the device:
 * ``wave_size=1`` — paper-faithful sequential insertion;
 * ``wave_size=W`` — the candidate searches of W pending vertices run as one
   batched search against the pre-wave graph, then the W extensions are
-  applied in order on the host.
+  applied in blocks.
 
-The Alg. 3 extension runs on the host (numpy, as in the JAX package with
-``device_extend=False``).  The device extension is the next slice of the
-port; ``DEGParams.device_extend=True`` raises until then.  The build's
-randomness is numpy (``default_rng(0)`` entry vertices), so with the same
-inputs a build replays the JAX package's.
+The Alg. 3 extension runs on the device by default
+(``DEGParams.device_extend``): per block of ``extend_block`` vertices one
+selection pass of ``core/extend.py`` against the freshly synced graph, one
+vectorized apply, and a host completion of the lanes a conflict left short.
+``device_extend=False`` runs the numpy extension vertex by vertex.
+:meth:`DEGIndex.refine` runs Alg. 5 through ``core/optimize.py``.  The
+randomness is numpy (``default_rng(0)`` entry vertices, the refinement
+seed), so with the same inputs a build or a refinement replays the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -59,19 +64,21 @@ class DEGParams:
     degree: int = 20          # d
     k_ext: int = 40
     eps_ext: float = 0.3
-    # Alg. 4 refinement (k_opt, eps_opt, i_opt): inert until the refinement
-    # sweep is ported (ROADMAP A4); kept so a JAX index's params carry over
     k_opt: int = 20
     eps_opt: float = 0.001
     i_opt: int = 5
     scheme: str = "C"         # paper default: C for extension
     rng_checks: bool = True   # Algorithm 2 during extension
+    # Alg. 3 line 17, optional in the paper: optimize the new vertex's far
+    # edges at insertion (off, as in the JAX package; refine() is the
+    # continuous path)
     optimize_new: bool = False
     metric: str = "l2"
-    # Alg. 3 neighbor selection on the device: the next slice of the port
-    # (ROADMAP A4); True raises NotImplementedError until then, and so does
-    # an extend_block other than its default
+    # Alg. 3 neighbor selection on the device (core/extend.py); False runs
+    # the per-vertex host path
     device_extend: bool = True
+    # vertices selected per device pass within an insert wave, each pass
+    # against the graph synced after the previous block's edge swaps
     extend_block: int = 16
     expand_width: int = 1
     hop_backend: str = "composed"     # "composed" | "fused"
@@ -80,10 +87,6 @@ class DEGParams:
     def __post_init__(self):
         if self.k_ext < self.degree:
             raise ValueError("k_ext must be >= degree (paper Sec. 5.2)")
-        if self.extend_block != 16:
-            raise NotImplementedError(
-                "extend_block sizes the device Alg. 3 extension, the next "
-                "slice of the port (ROADMAP A4); leave it at 16")
 
 
 class DEGIndex:
@@ -105,6 +108,9 @@ class DEGIndex:
         # per-stage wall time of _insert_wave (candidate search vs vertex
         # extension)
         self.build_stats = {"search_s": 0.0, "extend_s": 0.0, "vertices": 0}
+        # running totals of refine_sweep, in place of the JAX package's obs
+        # counters (not ported)
+        self.refine_stats = {"vertices": 0, "edge_tasks": 0, "improved": 0}
 
     # -- sizes -------------------------------------------------------------
     @property
@@ -173,11 +179,6 @@ class DEGIndex:
             i += w
 
     def _insert_wave(self, pts: np.ndarray) -> None:
-        if self.params.device_extend:
-            raise NotImplementedError(
-                "device_extend=True: the device Alg. 3 extension "
-                "(core/extend.py + mrng_occlusion) is the next slice of the "
-                "port (ROADMAP A4); pass DEGParams(device_extend=False)")
         W = pts.shape[0]
         start = self.builder.n
         self.vectors[start : start + W] = pts
@@ -190,32 +191,112 @@ class DEGIndex:
         ids = res.ids.cpu().numpy()
         dists = res.dists.cpu().numpy()
         t1 = time.perf_counter()
-        # the whole wave joins the graph first, as in the JAX package; a
-        # wave vertex only gains edges from its own extension, since every
-        # candidate of v lies below v
-        vs = [self.builder.add_vertex() for _ in range(W)]
-        assert vs[0] == start
-        for j, v in enumerate(vs):
-            new_edges = self._extend_vertex(v, pts[j], ids[j], dists[j])
-            self._post_insert(v, new_edges, ids[j])
+        use_device = self.params.device_extend
+        block = max(int(self.params.extend_block), 1) if use_device else W
+        for j0 in range(0, W, block):
+            j1 = min(j0 + block, W)
+            vs = [self.builder.add_vertex() for _ in range(j0, j1)]
+            assert vs[0] == start + j0
+            if use_device:
+                # one selection pass for the block against the freshly
+                # synced graph, then one apply of every selection that
+                # survived the block's conflicts (first lane wins, the
+                # host application order)
+                from .extend import extend_wave
+
+                sel_ids, sel_d, ok = extend_wave(
+                    self, pts[j0:j1], res.ids[j0:j1], res.dists[j0:j1],
+                    start + j0)
+                self._apply_extension_block(start + j0, sel_ids, sel_d, ok)
+            for j in range(j0, j1):
+                v = start + j
+                # warm start from the live row: a host completion of an
+                # earlier lane may have taken (or added) edges of this
+                # vertex since the block's apply
+                live = self.builder.neighbors(v)
+                if len(live) == self.params.degree:
+                    new_edges = [int(x) for x in live]
+                else:
+                    new_edges = self._extend_vertex(
+                        v, pts[j], ids[j], dists[j],
+                        [int(x) for x in live],
+                        [float(x) for x in self.builder.neighbor_weights(v)])
+                self._post_insert(v, new_edges, ids[j])
         t2 = time.perf_counter()
         self.build_stats["search_s"] += t1 - t0
         self.build_stats["extend_s"] += t2 - t1
         self.build_stats["vertices"] += W
 
     def _post_insert(self, v: int, new_edges, cand_ids) -> None:
-        if self.params.optimize_new:
-            raise NotImplementedError(
-                "optimize_new (Alg. 3 line 17) needs the edge optimization "
-                "of core/optimize.py, a later slice of the port (ROADMAP A4)")
+        if not self.params.optimize_new:
+            return
+        from .optimize import optimize_edge
+
+        in_s = set(int(x) for x in cand_ids if x != INVALID)
+        for u in new_edges:
+            if u not in in_s and self.builder.has_edge(v, u):
+                # Alg. 3 line 17: replace the far neighbors of the new
+                # vertex.  Alg. 4's search finds a new neighbor for its
+                # second argument, so the new vertex goes second, as in
+                # the JAX package
+                optimize_edge(self, u, v, i_opt=self.params.i_opt,
+                              k_opt=self.params.k_opt,
+                              eps_opt=self.params.eps_opt)
 
     def _entry_vertex(self) -> int:
         return int(self._rng.integers(0, max(self.builder.n, 1)))
 
+    def _apply_extension_block(self, start_v: int, sel_ids: np.ndarray,
+                               sel_d: np.ndarray, ok: np.ndarray) -> None:
+        """Apply a block of device-selected neighborhoods in one vectorized
+        pass of Alg. 3 edge swaps.
+
+        An edge may be claimed by several lanes of the block (all selected
+        against the same snapshot); the first lane wins, the host
+        application order, by a lane-major first-occurrence dedup, and
+        ``GraphBuilder.replace_edges`` skips any other stale claim.  Lanes
+        left short of ``degree`` edges are completed on the host by the
+        caller, off the live rows."""
+        b = self.builder
+        Wb, D = sel_ids.shape
+        P = D // 2
+        v_arr = start_v + np.arange(Wb)
+        lane_ok = np.asarray(ok, bool).copy()
+        # structural sanity (the device pass guarantees these; cheap)
+        lane_ok &= ((sel_ids >= 0).all(axis=1)
+                    & (sel_ids < v_arr[:, None]).all(axis=1))
+        srt = np.sort(sel_ids, axis=1)
+        lane_ok &= (srt[:, 1:] != srt[:, :-1]).all(axis=1)
+        bs, ns = sel_ids[:, 0::2], sel_ids[:, 1::2]          # (Wb, P)
+        lo = np.minimum(bs, ns).astype(np.int64)
+        hi = np.maximum(bs, ns).astype(np.int64)
+        key = lo * b.capacity + hi
+        # failed lanes claim nothing: give them unique sentinel keys
+        sentinel = -1 - (np.arange(Wb, dtype=np.int64)[:, None] * P
+                         + np.arange(P, dtype=np.int64)[None, :])
+        key = np.where(lane_ok[:, None], key, sentinel)
+        _, first = np.unique(key.reshape(-1), return_index=True)
+        keep = np.zeros(key.size, dtype=bool)
+        keep[first] = True
+        keep = keep.reshape(Wb, P) & lane_ok[:, None]
+        k = keep.reshape(-1)
+        # v-row slots stay at the pair's position (2t, 2t+1); dropped pairs
+        # leave INVALID holes that the host completion fills
+        t_idx = np.broadcast_to(np.arange(P), (Wb, P))
+        b.replace_edges(
+            np.broadcast_to(v_arr[:, None], (Wb, P)).reshape(-1)[k],
+            (2 * t_idx).reshape(-1)[k].astype(np.int64),
+            bs.reshape(-1)[k], ns.reshape(-1)[k],
+            sel_d[:, 0::2].reshape(-1)[k], sel_d[:, 1::2].reshape(-1)[k])
+
     # -- Alg. 3 core: select d/2 (b, n) pairs -------------------------------
     def _extend_vertex(self, v: int, vec: np.ndarray, cand_ids: np.ndarray,
-                       cand_dists: np.ndarray) -> list[int]:
-        """Host Alg. 3 selection of the d/2 (b, n) edge pairs of ``v``."""
+                       cand_dists: np.ndarray,
+                       U0: Optional[list[int]] = None,
+                       U0_d: Optional[list[float]] = None) -> list[int]:
+        """Host Alg. 3 selection of the d/2 (b, n) edge pairs of ``v``.
+        ``U0`` / ``U0_d`` seed the selected set with pairs already in the
+        graph (the completion of a device-extended lane)."""
         b = self.builder
         d = b.degree
         metric = self.params.metric
@@ -223,8 +304,9 @@ class DEGIndex:
             (int(c), float(x)) for c, x in zip(cand_ids, cand_dists)
             if c != INVALID and c < v
         ]
-        U: list[int] = []
-        U_d: list[float] = []
+        U: list[int] = list(U0 or [])
+        U_d: list[float] = list(U0_d or [])
+        n_pre = len(U)            # warm-start edges already in the graph
 
         def select_n(bb: int, b_dist: float) -> Optional[tuple[int, float]]:
             nbrs = [int(x) for x in b.neighbors(bb) if int(x) not in U]
@@ -279,16 +361,33 @@ class DEGIndex:
                     raise RuntimeError(
                         f"cannot complete neighborhood for vertex {v}")
                 cands = self._exact_candidates(vec, set(U), v)
-        for u, w in zip(U, U_d):
+        for u, w in zip(U[n_pre:], U_d[n_pre:]):
             b.add_edge(v, u, w)
         return U
 
     def _exact_candidates(self, vec, exclude, v):
         """Widened pool for an exhausted extension: every vertex below the
-        one being inserted."""
+        one being inserted (vertices of the same block above ``v`` are
+        added but not yet extended, so ``builder.n`` is not the bound)."""
         ds = np_pair_dist(self.params.metric, vec, self.vectors[:v])
         order = np.argsort(ds)
         return [(int(i), float(ds[i])) for i in order if int(i) not in exclude]
+
+    # -- continuous refinement (Alg. 5) ---------------------------------------
+    def refine(self, iterations: int, seed: Optional[int] = None) -> int:
+        """Continuous edge optimization (Alg. 5) over ``iterations`` vertices
+        drawn with ``numpy.random.default_rng(seed)``, through the batched
+        path of ``optimize.refine_sweep``.  Returns the number of improved
+        edges."""
+        from .optimize import refine_sweep
+
+        if self.builder is None or self.builder.n <= self.builder.degree + 1:
+            return 0
+        rng = np.random.default_rng(seed)
+        vertices = rng.integers(0, self.builder.n, size=int(iterations))
+        return refine_sweep(self, vertices, i_opt=self.params.i_opt,
+                            k_opt=self.params.k_opt,
+                            eps_opt=self.params.eps_opt)
 
     # -- queries --------------------------------------------------------------
     def search_batch(self, queries: np.ndarray,
@@ -361,12 +460,36 @@ class DEGIndex:
                                  k=k, eps=eps, beam_width=beam_width)
 
 
+    # -- internal searches of core/optimize.py ---------------------------------
+    def _search_from(self, query_vec: np.ndarray, seed_ids: Sequence[int],
+                     k: int, eps: float) -> tuple[np.ndarray, np.ndarray]:
+        s = np.full((1, 2), INVALID, dtype=np.int32)
+        for j, sid in enumerate(list(seed_ids)[:2]):
+            s[0, j] = sid
+        res = self.search_batch(
+            np.asarray(query_vec, np.float32)[None, :], s, k=k, eps=eps)
+        return res.ids.cpu().numpy()[0], res.dists.cpu().numpy()[0]
+
+    def _search_from_batch(self, query_vecs: np.ndarray,
+                           seed_ids: np.ndarray, k: int, eps: float
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched sibling of ``_search_from``: (B, m) queries, (B, S)
+        seeds -> host (B, k) ids/dists.  Lanes are independent, so unlike
+        the JAX package (which pads them to a power of two for its compile
+        cache) nothing is padded."""
+        res = self.search_batch(query_vecs, seed_ids, k=k, eps=eps)
+        return res.ids.cpu().numpy(), res.dists.cpu().numpy()
+
+
 def build_deg(vectors: np.ndarray, params: DEGParams | None = None,
-              wave_size: int = 1, capacity: Optional[int] = None,
-              device="cuda") -> DEGIndex:
-    """One-shot construction of a DEG over ``vectors``."""
+              wave_size: int = 1, refine_iterations: int = 0,
+              capacity: Optional[int] = None, device="cuda") -> DEGIndex:
+    """One-shot construction of a DEG over ``vectors``, then
+    ``refine_iterations`` vertices of continuous refinement."""
     vectors = np.asarray(vectors, dtype=np.float32)
     idx = DEGIndex(vectors.shape[1], params,
                    capacity=capacity or vectors.shape[0], device=device)
     idx.add(vectors, wave_size=wave_size)
+    if refine_iterations:
+        idx.refine(refine_iterations)
     return idx

@@ -103,6 +103,13 @@ class GraphBuilder:
         row = self.adjacency[v]
         return row[row != INVALID]
 
+    def neighbor_weights(self, v: int) -> np.ndarray:
+        row = self.adjacency[v]
+        return self.weights[v][row != INVALID]
+
+    def vertex_degree(self, v: int) -> int:
+        return int((self.adjacency[v] != INVALID).sum())
+
     def edge_slot(self, u: int, v: int) -> int:
         """Slot of ``v`` in ``u``'s row, or -1."""
         row = self.adjacency[u]
@@ -188,6 +195,43 @@ class GraphBuilder:
         self.mark_dirty(u, v)
         return w
 
+    def replace_edges(self, v_rows: np.ndarray, v_slots: np.ndarray,
+                      bs: np.ndarray, ns: np.ndarray, w_vb: np.ndarray,
+                      w_vn: np.ndarray) -> np.ndarray:
+        """Vectorized Alg. 3 edge swaps: for every pair t, the edge
+        (bs[t], ns[t]) becomes (v_rows[t], bs[t]) + (v_rows[t], ns[t]),
+        written into ``v_rows[t]``'s row at slots ``v_slots[t]`` and
+        ``v_slots[t] + 1``.
+
+        Contract (the device-extension apply in ``core/build.py``): the
+        claimed edges are pairwise distinct, so every write lands in a
+        distinct (row, slot); ``v_rows`` are fresh vertices whose target
+        slots are empty.  Pairs whose edge is absent (a stale claim) are
+        skipped; the returned bool mask says which pairs were applied."""
+        m = len(bs)
+        if m == 0:
+            return np.zeros(0, dtype=bool)
+        idx = np.arange(m)
+        rows_b = self.adjacency[bs]
+        s1 = np.argmax(rows_b == ns[:, None], axis=1)
+        ok = rows_b[idx, s1] == ns
+        rows_n = self.adjacency[ns]
+        s2 = np.argmax(rows_n == bs[:, None], axis=1)
+        ok &= rows_n[idx, s2] == bs
+        bs, ns, s1, s2 = bs[ok], ns[ok], s1[ok], s2[ok]
+        v_r, v_s = v_rows[ok], v_slots[ok]
+        w_b, w_n = w_vb[ok], w_vn[ok]
+        self.adjacency[bs, s1] = v_r
+        self.weights[bs, s1] = w_b
+        self.adjacency[ns, s2] = v_r
+        self.weights[ns, s2] = w_n
+        self.adjacency[v_r, v_s] = bs
+        self.weights[v_r, v_s] = w_b
+        self.adjacency[v_r, v_s + 1] = ns
+        self.weights[v_r, v_s + 1] = w_n
+        self.mark_dirty(*bs, *ns, *v_r)
+        return ok
+
     def load(self, adjacency: np.ndarray, weights: np.ndarray,
              n: int) -> None:
         """Bulk-load a stored graph."""
@@ -221,6 +265,23 @@ class GraphBuilder:
         g = self.device_graph()
         return DEGraph(adjacency=g.adjacency.clone(),
                        weights=g.weights.clone(), n=g.n)
+
+    # -- stats used by Alg. 5 ----------------------------------------------
+    def longest_edge_slot(self, v: int) -> int:
+        row = self.adjacency[v]
+        w = np.where(row != INVALID, self.weights[v], -np.inf)
+        return int(np.argmax(w))
+
+    def average_neighbor_distance(self) -> float:
+        """Eq. (4) over the whole graph (active vertices only)."""
+        if self.n == 0:
+            return 0.0
+        adj = self.adjacency[: self.n]
+        w = self.weights[: self.n]
+        valid = adj != INVALID
+        denom = np.maximum(valid.sum(axis=1), 1)
+        per_vertex = (w * valid).sum(axis=1) / denom
+        return float(per_vertex.mean())
 
 
 def complete_graph(vectors: np.ndarray, degree: int, capacity: int,

@@ -1,9 +1,10 @@
-"""Quality metrics from the paper: recall@k (Eq. 2)."""
+"""Quality metrics from the paper: recall@k (Eq. 2) and the average
+neighbor distance (Eq. 4)."""
 from __future__ import annotations
 
 import numpy as np
 
-from .graph import INVALID
+from .graph import DEGraph, INVALID
 
 
 def recall_at_k(found_ids: np.ndarray, true_ids: np.ndarray) -> float:
@@ -18,3 +19,12 @@ def recall_at_k(found_ids: np.ndarray, true_ids: np.ndarray) -> float:
         f = set(int(x) for x in found_ids[i].tolist() if x != INVALID)
         hits += len(t & f)
     return hits / (q * k)
+
+
+def average_neighbor_distance(graph_or_builder) -> float:
+    """Eq. (4), the paper's edge-quality metric, of a ``GraphBuilder`` or a
+    ``DEGraph``."""
+    b = graph_or_builder
+    if isinstance(b, DEGraph):
+        b = b.to_builder()
+    return b.average_neighbor_distance()

@@ -1,4 +1,5 @@
-"""checkMRNG (paper Algorithm 2), host variants (numpy).
+"""checkMRNG (paper Algorithm 2), host variants (numpy); the batched device
+variant is ``core/extend.py::mrng_conform_batch``.
 
 An edge (v1, v2) is MRNG-conform iff no *common neighbor* u of v1 and v2 lies
 inside the lune, i.e. ``delta(v1, v2) <= max(w(v1,u), w(v2,u))`` for all
@@ -7,6 +8,8 @@ new vertex is the set ``U`` of neighbors selected so far (Appendix D: the
 order of operations is what makes DEG an MRNG *approximation*).
 """
 from __future__ import annotations
+
+import numpy as np
 
 from .graph import GraphBuilder, INVALID
 
@@ -42,3 +45,16 @@ def check_mrng_candidate(builder: GraphBuilder, cand: int, dist_v_cand: float,
             if dist_v_cand > max(w_vu, w_cu):
                 return False
     return True
+
+
+def mrng_conform_mask(builder: GraphBuilder, v1: int) -> np.ndarray:
+    """For Alg. 5: boolean mask over v1's adjacency slots, True where the
+    edge in that slot is MRNG-conform (INVALID slots are True)."""
+    row = builder.adjacency[v1]
+    out = np.zeros(row.shape, dtype=bool)
+    for s, v2 in enumerate(row):
+        if v2 == INVALID:
+            out[s] = True
+            continue
+        out[s] = check_mrng(builder, v1, int(v2), float(builder.weights[v1, s]))
+    return out

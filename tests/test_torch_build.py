@@ -86,14 +86,3 @@ def test_carried_across_index_answers_like_jax(both, data):
     for lane, v in enumerate(sv):
         assert v not in ids[lane] and not set(seen[lane]) & set(ids[lane])
 
-
-def test_device_extend_raises(data):
-    base, _ = data
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_deg(base[:40], DEGParams(degree=8, k_ext=16), wave_size=8,
-                  device="cpu")
-
-
-def test_extend_block_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        DEGParams(degree=8, k_ext=16, device_extend=False, extend_block=4)

@@ -1,0 +1,91 @@
+"""A rehearsal of ``chip_smoke.py`` on the CPU at a small size: its phase
+functions run with ``device="cpu"``, where every kernel wrapper takes its
+plain version.  The card-only pieces (synchronisation and the profiler)
+are replaced, and each launch count the script expects must read 0 here,
+since a CPU tensor never reaches a kernel."""
+import os
+import sys
+
+import numpy as np
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke as cs  # noqa: E402
+
+N, N_QUERIES, BATCH, N_SMALL = 800, 64, 32, 300
+
+
+def _no_launches(kernel, got, want, what):
+    assert got == 0, f"{got} {kernel} launches on the CPU"
+
+
+@pytest.fixture(scope="module")
+def rehearsal():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cs, "sync", lambda: None)
+        mp.setattr(cs, "idle_share", lambda fn, wall_ms, what: None)
+        mp.setattr(cs, "expect_launches", _no_launches)
+        mp.setattr(cs, "time_call",
+                   lambda fn, symbol=None, reps=0: {"device_ms": None,
+                                                    "event_ms": 0.0})
+        yield mp
+
+
+@pytest.fixture(scope="module")
+def served(rehearsal):
+    idx, base, queries, occ = cs.build_phase(N, N_QUERIES, "cpu")
+    out = cs.serve_phase(idx, base, queries, "cpu", batch=BATCH)
+    return idx, queries, occ, out
+
+
+@pytest.mark.parametrize("n, degree, want", [
+    (cs.N_AUDIO, 20, 6),            # 53,366 inserted: 833 waves + 54
+    (21 + 64, 20, 16),              # one full wave
+    (21 + 64 + 17, 20, 1),
+    (21 + 48, 20, 16),
+])
+def test_last_block(n, degree, want):
+    assert cs.last_block(n, degree) == want
+
+
+def test_extend_blocks():
+    assert cs.extend_blocks(53_366) == 3_336
+    assert cs.extend_blocks(64) == 4 and cs.extend_blocks(65) == 5
+
+
+def test_phase2_rows(rehearsal):
+    rows = cs.phase2("cpu")
+    assert set(rows) == set(cs.KERNELS)
+    for r in rows.values():
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+        assert r["max_abs_err"] == 0.0          # both sides are plain here
+
+
+def test_build_and_serve(served):
+    idx, _, occ, out = served
+    assert idx.n == N and occ == 0
+    for name in ("classic", "multi-e4-fused"):
+        assert out[name]["recall"] >= cs.RECALL_FLOOR
+        assert out[name]["ids"].shape == (N_QUERIES, cs.K)
+
+
+def test_host_extension_build(rehearsal):
+    idx, _, _, _ = cs.build_phase(N_SMALL, 8, "cpu", device_extend=False)
+    assert idx.n == N_SMALL
+
+
+def test_compare_then_refine(served):
+    idx, queries, _, out = served
+    ids = cs.wave_phase(idx, queries)
+    calls = cs.explore_phase(idx, sessions=4, hops=3)
+    cs.compare_plain_phase(idx, queries, out, ids, calls, batch=BATCH,
+                           n_compare=BATCH)
+    adj0 = idx.builder.adjacency.copy()
+    refined = cs.refine_phase(idx, queries, out["gt"], "cpu", vertices=16)
+    assert idx.refine_stats["vertices"] == 16
+    assert not np.array_equal(idx.builder.adjacency, adj0)
+    assert refined["classic"]["recall"] >= cs.RECALL_FLOOR
+
+
+def test_compare_extend(rehearsal):
+    assert cs.compare_extend_phase("cpu", n=N_SMALL) == 1.0

@@ -112,9 +112,10 @@ def test_wrappers_raise_off_cpu_and_off_cuda():
 
 
 def test_kernel_build_keys_cover_every_source():
-    assert _build.sources() == ["beam_merge", "fused_hop", "gather_dist"]
+    assert _build.sources() == ["beam_merge", "fused_hop", "gather_dist",
+                                "mrng_occlusion"]
     keys = {_build._target(n).name for n in _build.sources()}
-    assert len(keys) == 3 and all(k.endswith(".so") for k in keys)
+    assert len(keys) == 4 and all(k.endswith(".so") for k in keys)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
