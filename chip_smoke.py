@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of DEG on one NVIDIA card: build its CUDA kernels,
 hold each against its plain PyTorch version, build an index at the
-paper's audio size, serve queries and exploration sessions from it, refine
-it, and serve again.
+paper's audio size, serve queries and exploration sessions from it, serve
+from its compressed stores (fp16, sq8, pq), refine it, and serve again.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -14,8 +14,10 @@ Phases (any failure raises and exits non-zero):
      wave's search (B=64, L=80), an exploration hop (B=8, L=42), an extend
      block's lune test (B=16, K=40, and the build's last block), a refine
      chunk's (B=16, K=20), and refinement's searches (L=40: a chunk's
-     batched first search, B=REFINE_LANES, and a live one, B=1), with
-     times;
+     batched first search, B=REFINE_LANES, and a live one, B=1), and
+     the compressed stores' (gather_dist on fp16 rows, gather_dist_q on
+     sq8 codes and pq_adc on pq codes at B=256, d=20 and, for an E=4 hop,
+     80; the merges at their rerank-wide beams), with times;
   3. build: make_dataset("manifold", n, 10000, 192) under the paper's
      audio parameters (degree 20, k_ext 40, eps_ext 0.3), the device
      extension in blocks of 16, wave_size=64, then the Table-1
@@ -24,19 +26,28 @@ Phases (any failure raises and exits non-zero):
   4. serve: 10,000 queries in batches of 256 (k=10, eps=0.1) under the
      "classic" and "multi-e4-fused" presets, recall@10 against exact k-NN
      on the card, and 8 exploration sessions of 4 hops;
+  4b. compressed serving on the same graph: for the "fp16", "sq8-serving"
+     and "pq-serving" QUANT_PRESETS under "classic", the store's encode
+     seconds (pq's host fit apart), memory_stats() against the bytes
+     written out and against the bytes each store's tensors hold, 10,000
+     queries (QPS, recall@10, hops, evals), the idle
+     share of one batch;
   5. refine: Alg. 5 over REFINE_VERTICES vertices under the audio
      config's k_opt, eps_opt and i_opt, the average neighbor distance
      (Eq. 4) before and after, Table-1, the idle share of one chunk; then
      "classic" served again on the refined graph;
   6. the main path again through the plain versions: 512 queries of each
-     preset, one wave search, every exploration hop, one refine chunk
+     preset, and of each compressed store under "classic" and
+     "multi-e4-fused", one wave search, every exploration hop, one refine
+     chunk
      (equal adjacency and improved edges), and a device-extend build of
      N_HOST vertices with the kernels and with the plain versions;
   7. the kernels' JSON line, then the final JSON line.
 
-The kernels' launch counters read the builds, the timed serving loops, the
-exploration sessions and the refinement only; warm-ups, profiled reruns
-and the runs of the plain versions are not counted.
+The kernels' launch counters read the builds, the timed serving loops
+(compressed ones too), the exploration sessions and the refinement only;
+warm-ups, profiled reruns and the runs of the plain versions are not
+counted.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.  It imports nothing of
@@ -64,6 +75,7 @@ INVALID = -1
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 TIMING_REPS = 50
+PROFILE_TRIES = 3
 N_AUDIO, DIM, N_QUERIES, BATCH = 53_387, 192, 10_000, 256
 K, EPS = 10, 0.1                   # serving: recall@10 at eps 0.1
 K_EXT, WAVE = 40, 64               # the audio config's k_ext; insert wave
@@ -86,7 +98,15 @@ KERNELS = {
     "beam_merge": "src/repro/kernels/beam_merge/beam_merge.py:189",
     "fused_hop": "src/repro/kernels/fused_hop/fused_hop.py:114",
     "mrng_occlusion": "src/repro/kernels/mrng_occlusion/mrng_occlusion.py:50",
+    "gather_dist_q": "src/repro/kernels/gather_dist_q/gather_dist_q.py:37",
+    "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
 }
+# phase 4b: the compressed stores served under the "classic" preset
+QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
+# DEGIndex.memory_stats() at the audio size (n=53,387, m=192), by
+# quant/codec.py::store_bytes; pq: 24 code bytes a row plus the codebooks
+AUDIO_STORE_BYTES = {"float32": 41_001_216, "fp16": 20_500_608,
+                     "sq8": 10_251_072, "pq": 1_477_896}
 
 
 def log(*a):
@@ -137,16 +157,23 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
         e.record()
         e.synchronize()
         ev.append(s.elapsed_time(e))
-    rows = device_profile(fn, reps)
-    dev_ms = None
-    if rows:
-        if symbol is not None:
-            rows = [r for r in rows if symbol in r[0]]
-            if sum(r[2] for r in rows) != reps:
-                raise AssertionError(f"the profiler saw {symbol} launched "
-                                     f"{sum(r[2] for r in rows)} times in "
-                                     f"{reps} calls")
-        dev_ms = sum(r[1] for r in rows) / reps
+    # the profiler has dropped some of 50 back-to-back launches of a few
+    # microseconds (36 of 50 seen on one H100 run): profile again, up to
+    # PROFILE_TRIES times, until it sees every launch
+    for _ in range(PROFILE_TRIES):
+        rows = device_profile(fn, reps)
+        if symbol is None or not rows:
+            break
+        rows = [r for r in rows if symbol in r[0]]
+        seen = sum(r[2] for r in rows)
+        if seen == reps:
+            break
+        log(f"  the profiler saw {symbol} launched {seen} times in {reps} "
+            "calls; profiling again")
+    else:
+        raise AssertionError(f"the profiler saw {symbol} launched {seen} "
+                             f"times in {reps} calls, {PROFILE_TRIES} times")
+    dev_ms = sum(r[1] for r in rows) / reps if rows else None
     return {"device_ms": dev_ms, "event_ms": float(np.median(ev))}
 
 
@@ -203,16 +230,28 @@ def phase2_inputs(device, N=N_AUDIO, seed=0):
                 queries=queries, n_valid=n_valid, N=N)
 
 
-def check_gather_dist(inp, device, B) -> dict:
+def _ids(inp, B, d, device):
+    """(B, d) gather ids over the N rows, 5% INVALID and three clipped."""
     import torch
-    from repro_torch.kernels.gather_dist import ops
 
-    rng, d, m = inp["rng"], PHASE2["d"], PHASE2["m"]
+    rng = inp["rng"]
     ids = rng.integers(0, inp["N"], size=(B, d)).astype(np.int32)
     ids[rng.random((B, d)) < 0.05] = INVALID
     ids[0, :3] = [inp["N"], inp["N"] + 9, INVALID]         # clipped ids
-    ids = torch.tensor(ids, device=device)
+    return torch.tensor(ids, device=device)
+
+
+def check_gather_dist(inp, device, B, rows="f32") -> dict:
+    """``rows``: "f32", "f16" (the fp16 store's rows) or "bf16", the
+    half rows upcast in the kernel."""
+    import torch
+    from repro_torch.kernels.gather_dist import ops
+
+    d, m = PHASE2["d"], PHASE2["m"]
+    ids = _ids(inp, B, d, device)
     v, q = inp["vectors"], inp["queries"][:B]
+    v = v.to({"f32": torch.float32, "f16": torch.float16,
+              "bf16": torch.bfloat16}[rows])
     err = 0.0
     for squared in (False, True):
         got = ops.gather_dist(v, ids, q, squared=squared)
@@ -222,12 +261,85 @@ def check_gather_dist(inp, device, B) -> dict:
             err = float((got - want).abs().max())
     t = time_call(lambda: ops.gather_dist(v, ids, q), "gather_dist_kernel")
     tp = time_call(lambda: ops.gather_dist(v, ids, q, impl="ref"))
-    rows = torch.unique(ids.clamp(0, inp["N"] - 1)).numel()
-    nb = ids.numel() * 4 + rows * m * 4 + q.numel() * 4 + B * d * 4
+    n_rows = torch.unique(ids.clamp(0, inp["N"] - 1)).numel()
+    nb = (ids.numel() * 4 + n_rows * m * v.element_size() + q.numel() * 4
+          + B * d * 4)
     bms, by = bound_ms(nb, 3 * B * d * m + B * d)
     return dict(name="gather_dist", max_abs_err=err, t=t, tp=tp,
                 tl=None, bound_ms=bms, bound_by=by,
-                shape=f"B={B} d={d} m={m} f32 l2", tol="rtol 1e-5")
+                shape=f"B={B} d={d} m={m} {rows} l2",
+                tol="rtol 1e-5")
+
+
+def check_gather_dist_q(inp, device, d) -> dict:
+    """The sq8 store's kernel at serving's B: d = 20 for a classic hop, 80
+    for an E=4 hop, which over a compressed store runs composed."""
+    import torch
+    from repro_torch.kernels.gather_dist_q import ops
+    from repro_torch.quant import codec
+
+    B, m = PHASE2["B"], PHASE2["m"]
+    v, q = inp["vectors"], inp["queries"][:B]
+    scale = codec.calibrate_sq8_scale(v)
+    codes = codec.sq8_encode(v, scale)
+    ids = _ids(inp, B, d, device)
+    err = 0.0
+    for squared in (False, True):
+        got = ops.gather_dist_q(codes, scale, ids, q, squared=squared)
+        want = ops.gather_dist_q(codes, scale, ids, q, squared=squared,
+                                 impl="ref")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        if not squared:
+            err = float((got - want).abs().max())
+    t = time_call(lambda: ops.gather_dist_q(codes, scale, ids, q),
+                  "gather_dist_q_kernel")
+    tp = time_call(lambda: ops.gather_dist_q(codes, scale, ids, q,
+                                             impl="ref"))
+    rows = torch.unique(ids.clamp(0, inp["N"] - 1)).numel()
+    nb = ids.numel() * 4 + rows * m + m * 4 + q.numel() * 4 + B * d * 4
+    bms, by = bound_ms(nb, 4 * B * d * m + B * d)
+    return dict(name="gather_dist_q", max_abs_err=err, t=t, tp=tp, tl=None,
+                bound_ms=bms, bound_by=by, shape=f"B={B} d={d} m={m} sq8 l2",
+                tol="rtol 1e-5")
+
+
+def check_pq_adc(inp, device, d, m_sub=24) -> dict:
+    """The pq store's kernel at serving's B over (N, m_sub) codes and
+    seeded codebooks (the kernel computes the same function of any
+    codebook, so phase 2 does not fit one)."""
+    import torch
+    from repro_torch.kernels.pq_adc import ops
+
+    rng, B, m, N = inp["rng"], PHASE2["B"], PHASE2["m"], inp["N"]
+    dsub = m // m_sub
+    books = torch.tensor(rng.normal(size=(m_sub, 256, dsub)).astype(
+        np.float32), device=device)
+    codes = torch.tensor(rng.integers(0, 256, size=(N, m_sub)).astype(
+        np.uint8), device=device)
+    q = inp["queries"][:B]
+    ids = _ids(inp, B, d, device)
+    err = 0.0
+    for squared in (False, True):
+        got = ops.pq_adc(codes, books, ids, q, squared=squared)
+        want = ops.pq_adc(codes, books, ids, q, squared=squared, impl="ref")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        if not squared:
+            err = float((got - want).abs().max())
+    t = time_call(lambda: ops.pq_adc(codes, books, ids, q), "pq_adc_kernel")
+    tp = time_call(lambda: ops.pq_adc(codes, books, ids, q, impl="ref"))
+    rows = torch.unique(ids.clamp(0, N - 1)).numel()
+    nb = (ids.numel() * 4 + rows * m_sub + books.numel() * 4
+          + q.numel() * 4 + B * d * 4)
+    # the cheaper of the function's two forms: each query's whole table
+    # (3 flops per (subspace, centroid, dim)) and m_sub adds a row, or the
+    # B * d distances straight from the code rows and codebooks (3 flops
+    # per (row, dim))
+    bms, by = bound_ms(nb, min(3 * B * 256 * m + B * d * m_sub,
+                               3 * B * d * m))
+    return dict(name="pq_adc", max_abs_err=err, t=t, tp=tp, tl=None,
+                bound_ms=bms, bound_by=by,
+                shape=f"B={B} d={d} m={m} m_sub={m_sub} pq l2",
+                tol="rtol 1e-5")
 
 
 def _beam(rng, B, L, C, device):
@@ -385,6 +497,7 @@ def last_block(n: int, degree: int) -> int:
 
 
 def phase2(device, n_build=N_AUDIO) -> dict:
+    from repro_torch.configs.deg import QUANT_PRESETS
     from repro_torch.core.beam import default_beam_width
 
     inp = phase2_inputs(device)
@@ -397,6 +510,9 @@ def phase2(device, n_build=N_AUDIO) -> dict:
     L_wave = default_beam_width(K_EXT, d, 1)
     L_explore = default_beam_width(K, d, 1, 2 + (EXPLORE_HOPS - 1) * K)
     L_opt = default_beam_width(K_OPT, d, 2)
+    # the compressed presets' beams (phase 4b): L grows to the rerank width
+    L_sq8 = max(L, QUANT_PRESETS["sq8-serving"].rerank_k)
+    L_pq = max(L, QUANT_PRESETS["pq-serving"].rerank_k)
     results = [check_gather_dist(inp, device, B),
                check_beam_merge(inp, device, B, L, d),
                check_beam_merge(inp, device, B, L, 4 * d),
@@ -413,7 +529,17 @@ def phase2(device, n_build=N_AUDIO) -> dict:
                check_gather_dist(inp, device, REFINE_LANES),
                check_beam_merge(inp, device, REFINE_LANES, L_opt, d),
                check_gather_dist(inp, device, 1),
-               check_beam_merge(inp, device, 1, L_opt, d)]
+               check_beam_merge(inp, device, 1, L_opt, d),
+               check_gather_dist_q(inp, device, d),
+               check_pq_adc(inp, device, d),
+               check_gather_dist(inp, device, B, rows="f16"),
+               check_gather_dist_q(inp, device, 4 * d),
+               check_pq_adc(inp, device, 4 * d),
+               check_beam_merge(inp, device, B, L_sq8, d),
+               check_beam_merge(inp, device, B, L_pq, d),
+               check_beam_merge(inp, device, B, L_pq, 4 * d),
+               # bf16 rows: on no path yet, but built into gather_dist.cu
+               check_gather_dist(inp, device, B, rows="bf16")]
     for r in results:
         tl = r["tl"]
         log(f"phase2 {r['name']} [{r['shape']}] ok ({r['tol']}): "
@@ -428,21 +554,42 @@ def phase2(device, n_build=N_AUDIO) -> dict:
     # (C = d), the fused preset's hop (E = 4) and an extend block's lune
     # test (K = k_ext), the build's launches
     return {"gather_dist": results[0], "beam_merge": results[1],
-            "fused_hop": results[4], "mrng_occlusion": results[9]}
+            "fused_hop": results[4], "mrng_occlusion": results[9],
+            "gather_dist_q": results[16], "pq_adc": results[17]}
 
 
 # ---------------------------------------------------------------------------
 # phases 3 and 4: build, serve, explore
 # ---------------------------------------------------------------------------
+def launch_counters() -> dict:
+    """Every kernel's launch counter as name -> (ops module, attribute);
+    fp16 rows' launches of gather_dist are also counted apart."""
+    from repro_torch.kernels.beam_merge import ops as bm_ops
+    from repro_torch.kernels.fused_hop import ops as fh_ops
+    from repro_torch.kernels.gather_dist import ops as gd_ops
+    from repro_torch.kernels.gather_dist_q import ops as gdq_ops
+    from repro_torch.kernels.mrng_occlusion import ops as mo_ops
+    from repro_torch.kernels.pq_adc import ops as adc_ops
+
+    return {"gather_dist": (gd_ops, "launches"),
+            "gather_dist[fp16]": (gd_ops, "launches_f16"),
+            "beam_merge": (bm_ops, "launches"),
+            "fused_hop": (fh_ops, "launches"),
+            "mrng_occlusion": (mo_ops, "launches"),
+            "gather_dist_q": (gdq_ops, "launches"),
+            "pq_adc": (adc_ops, "launches")}
+
+
 def counted(ops: dict, total: dict, fn, *args, **kwargs):
-    """Run one piece of the main path with every kernel's launch counter
-    set to 0 just before it, and add the counts read just after it into
-    ``total``.  Warm-ups, profiled reruns and comparisons run outside."""
-    for m in ops.values():
-        m.launches = 0
+    """Run one piece of the main path with every launch counter of ``ops``
+    (name -> (module, counter attribute)) set to 0 just before it, and add
+    the counts read just after it into ``total``.  Warm-ups, profiled
+    reruns and comparisons run outside."""
+    for m, attr in ops.values():
+        setattr(m, attr, 0)
     out = fn(*args, **kwargs)
-    for name, m in ops.items():
-        total[name] += m.launches
+    for name, (m, attr) in ops.items():
+        total[name] += getattr(m, attr)
     return out
 
 
@@ -547,11 +694,14 @@ def plain_kernels():
     from repro_torch.kernels.beam_merge import ops as bm
     from repro_torch.kernels.fused_hop import ops as fh
     from repro_torch.kernels.gather_dist import ops as gd
+    from repro_torch.kernels.gather_dist_q import ops as gdq
     from repro_torch.kernels.mrng_occlusion import ops as mo
+    from repro_torch.kernels.pq_adc import ops as adc
 
     saved = [(m, name, getattr(m, name)) for m, name in
              ((bm, "beam_merge"), (fh, "fused_hop"), (gd, "gather_dist"),
-              (mo, "mrng_occlusion"))]
+              (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
+              (adc, "pq_adc"))]
     try:
         for m, name, fn in saved:
             setattr(m, name, functools.partial(fn, impl="ref"))
@@ -561,14 +711,21 @@ def plain_kernels():
             setattr(m, name, fn)
 
 
-def _serve(idx, queries, preset, k, eps, batch):
+def _serve(idx, queries, preset, k, eps, batch, quant=None):
+    """Serve ``queries`` in batches under a search preset and, with
+    ``quant`` (a QuantPreset), over its compressed store: its eps where it
+    sets one, its codec and its rerank width."""
+    kw = {}
+    if quant is not None:
+        eps = eps if quant.eps is None else quant.eps
+        kw = dict(quantized=quant.codec, rerank_k=quant.rerank_k or None)
     ids, hops, evals = [], [], []
     for lo in range(0, len(queries), batch):
         r = idx.search_batch(queries[lo : lo + batch], k=k, eps=eps,
                              expand_width=preset.expand_width,
                              hop_backend=preset.hop_backend,
                              visited_size=preset.visited_size,
-                             beam_width=preset.beam_width)
+                             beam_width=preset.beam_width, **kw)
         ids.append(r.ids.cpu().numpy())
         hops.append(r.hops.cpu().numpy())
         evals.append(r.evals.cpu().numpy())
@@ -612,6 +769,121 @@ def serve_phase(idx, base, queries, device, count=None, *, k=K, eps=EPS,
                    f"{tag} {name} one batch of {batch}")
         out[name] = dict(ids=ids, recall=rec, qps=len(queries) / secs,
                          hops=float(hops.mean()), evals=float(evals.mean()))
+    return out
+
+
+@contextlib.contextmanager
+def timed_pq_fit(secs: list):
+    """Append the seconds of every host ``pq.fit`` run inside to ``secs``."""
+    from repro_torch.quant import pq
+
+    fit = pq.fit
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fit(*args, **kwargs)
+        finally:
+            secs.append(time.perf_counter() - t0)
+
+    pq.fit = timed
+    try:
+        yield
+    finally:
+        pq.fit = fit
+
+
+def expected_store_bytes(n: int, m: int) -> dict:
+    """``memory_stats()``'s byte counts written out: rows at 4, 2 and 1
+    bytes a dimension, sq8's (m,) float32 scale, pq's m/8 code bytes a
+    row (8-dim subspaces when 8 divides m) and its 256 * m floats of
+    codebook."""
+    assert m % 8 == 0
+    want = {"float32": n * m * 4, "fp16": n * m * 2, "sq8": n * m + m * 4,
+            "pq": n * (m // 8) + 256 * m * 4}
+    if (n, m) == (N_AUDIO, DIM):
+        assert want == AUDIO_STORE_BYTES
+    return want
+
+
+def held_bytes(store, n: int) -> int:
+    """The bytes a store's tensors hold for its first ``n`` rows: the
+    code rows plus sq8's scale or pq's codebooks, read off the tensors
+    themselves, not from ``quant/codec.py::store_bytes``."""
+    rows = store.data[:n]
+    return sum(t.numel() * t.element_size()
+               for t in (rows, store.scale, store.codebooks) if t is not None)
+
+
+def check_held_bytes(store, stats: dict, n: int) -> None:
+    held = held_bytes(store, n)
+    if held != stats[f"{store.codec}_bytes"]:
+        raise AssertionError(
+            f"the {store.codec} store holds {held:,} bytes for {n} rows, "
+            f"memory_stats() says {stats[f'{store.codec}_bytes']:,}")
+
+
+def quant_serve_phase(idx, queries, gt, count=None, *, k=K, batch=BATCH,
+                      presets=QUANT_SERVED) -> dict:
+    """Phase 4b: the compressed stores on the unrefined graph.  For each
+    QUANT_PRESETS entry, under the "classic" search preset: the store's
+    encode seconds (pq's host fit apart), ``memory_stats()`` against the
+    bytes written out and against the bytes the store's tensors hold,
+    every query timed in batches (QPS, recall@k against
+    the exact k-NN, hops and evals, through ``count``), and the idle share
+    of one batch."""
+    from repro_torch.configs.deg import QUANT_PRESETS, SEARCH_PRESETS
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.quant.store import as_store
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    stats = idx.memory_stats()
+    want = expected_store_bytes(idx.n, idx.dim)
+    got = {c: stats[f"{c}_bytes"] for c in want}
+    log(f"phase4b memory_stats at n={idx.n} m={idx.dim}: " + ", ".join(
+        f"{c} {b:,} bytes ({stats[f'{c}_ratio']:.2f}x)"
+        for c, b in got.items()))
+    if got != want:
+        raise AssertionError(f"memory_stats {got} != {want}")
+    check_held_bytes(as_store(idx._dev_vectors), stats, idx.n)  # exact rows
+    classic = SEARCH_PRESETS["classic"]
+    out = {}
+    for name in presets:
+        quant = QUANT_PRESETS[name]
+        fit_s = []
+        t0 = time.perf_counter()
+        with timed_pq_fit(fit_s):
+            store = idx.store_for(quant.codec)
+        sync()
+        enc = time.perf_counter() - t0
+        log(f"phase4b store {name} ({quant.codec}): {enc:.4f} s"
+            + (f", of which the host pq fit {sum(fit_s):.4f} s"
+               if fit_s else "")
+            + f"; its tensors hold {held_bytes(store, idx.n):,} bytes for "
+            f"{idx.n} rows, data {tuple(store.data.shape)} {store.data.dtype}")
+        check_held_bytes(store, stats, idx.n)
+        _serve(idx, queries[:batch], classic, k, EPS, batch, quant)  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        ids, hops, evals = count(_serve, idx, queries, classic, k, EPS,
+                                 batch, quant)
+        secs = time.perf_counter() - t0
+        rec = recall_at_k(ids, gt)
+        eps = EPS if quant.eps is None else quant.eps
+        log(f"phase4b serve {name} (classic, eps {eps}, rerank_k "
+            f"{quant.rerank_k}): {len(queries)} queries in {secs:.3f} s = "
+            f"{len(queries) / secs:.1f} QPS, recall@{k} {rec:.4f}, "
+            f"mean hops {hops.mean():.2f}, mean evals {evals.mean():.1f}")
+        if rec < RECALL_FLOOR:
+            raise AssertionError(f"{name}: recall@{k} {rec:.4f} < "
+                                 f"{RECALL_FLOOR}")
+        idle_share(lambda: _serve(idx, queries[:batch], classic, k, EPS,
+                                  batch, quant),
+                   secs * 1e3 * batch / len(queries),
+                   f"phase4b {name} one batch of {batch}")
+        out[name] = dict(ids=ids, recall=rec, qps=len(queries) / secs,
+                         hops=float(hops.mean()), evals=float(evals.mean()),
+                         encode_s=enc, fit_s=sum(fit_s))
     return out
 
 
@@ -761,6 +1033,39 @@ def _agree(what: str, ids: np.ndarray, want: np.ndarray) -> float:
     return agree
 
 
+def compare_quant_phase(idx, queries, gt, quant_served, *, k=K, batch=BATCH,
+                        n_compare=512,
+                        search_presets=("classic", "multi-e4-fused")):
+    """Each compressed store's first ``n_compare`` queries under each
+    search preset with the kernels and through the plain versions: ids
+    equal on AGREE_FLOOR of the slots, recall within RECALL_GAP.  The
+    classic kernel run is phase 4b's; the E=4 preset (which over a
+    compressed store runs the composed hop) runs here with the kernels,
+    uncounted."""
+    from repro_torch.configs.deg import QUANT_PRESETS, SEARCH_PRESETS
+    from repro_torch.core.metrics import recall_at_k
+
+    gt_ids = gt[:n_compare]
+    qs = queries[:n_compare]
+    for name, res in quant_served.items():
+        quant = QUANT_PRESETS[name]
+        for sp in search_presets:
+            preset = SEARCH_PRESETS[sp]
+            if sp == "classic":
+                kern = res["ids"][:n_compare]
+            else:
+                kern, _, _ = _serve(idx, qs, preset, k, EPS, batch, quant)
+            with plain_kernels():
+                ids, _, _ = _serve(idx, qs, preset, k, EPS, batch, quant)
+            _agree(f"{name} {sp}, {n_compare} queries", ids, kern)
+            r_plain, r_kern = recall_at_k(ids, gt_ids), recall_at_k(kern,
+                                                                    gt_ids)
+            log(f"  recall@{k} {r_plain:.4f} plain vs {r_kern:.4f} kernels")
+            if abs(r_plain - r_kern) > RECALL_GAP:
+                raise AssertionError(f"{name} {sp}: recall {r_plain:.4f} "
+                                     f"plain vs {r_kern:.4f} kernels")
+
+
 def compare_plain_phase(idx, queries, served, wave_ids, explore_calls, *,
                         k=K, eps=EPS, batch=BATCH, n_compare=512):
     """The main path again through the plain versions on the card: the
@@ -809,10 +1114,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    from repro_torch.kernels.beam_merge import ops as bm_ops
-    from repro_torch.kernels.fused_hop import ops as fh_ops
-    from repro_torch.kernels.gather_dist import ops as gd_ops
-    from repro_torch.kernels.mrng_occlusion import ops as mo_ops
 
     device = "cuda"
     t_start = time.perf_counter()
@@ -834,10 +1135,10 @@ def main(argv=None) -> int:
     checks = phase2(device, args.n)
 
     # phases 3-5: the main path (builds, timed serving, exploration,
-    # refinement), each piece counted on its own; measurement reruns and
-    # the plain-version comparisons (phase 6) go uncounted
-    ops = {"gather_dist": gd_ops, "beam_merge": bm_ops, "fused_hop": fh_ops,
-           "mrng_occlusion": mo_ops}
+    # compressed serving, refinement), each piece counted on its own;
+    # measurement reruns and the plain-version comparisons (phase 6) go
+    # uncounted
+    ops = launch_counters()
     launches = dict.fromkeys(ops, 0)
     count = functools.partial(counted, ops, launches)
     def stamp(what):
@@ -852,8 +1153,11 @@ def main(argv=None) -> int:
     served = serve_phase(idx, base, queries, device, count)
     explore_calls = count(explore_phase, idx)
     stamp("phase 4")
+    quant_served = quant_serve_phase(idx, queries, served["gt"], count)
+    stamp("phase 4b")
     # compare on the graph that served, before refinement changes it
     compare_plain_phase(idx, queries, served, wave_ids, explore_calls)
+    compare_quant_phase(idx, queries, served["gt"], quant_served)
     stamp("phase 6, serving part")
     refine_phase(idx, queries, served["gt"], device, count)
     stamp("phase 5")

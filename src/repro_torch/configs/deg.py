@@ -1,5 +1,5 @@
 """DEG hyperparameters from the paper (Table 3) keyed by dataset analogue,
-and the query-engine presets.
+the serving-side compressed-store presets and the query-engine presets.
 
 The JAX package's ``hop_backend`` values map to the port's as
 ``"jnp"`` -> ``"composed"`` and ``"pallas"`` -> ``"fused"``; each preset
@@ -8,6 +8,7 @@ both sides."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.core.build import DEGParams
 
@@ -23,6 +24,35 @@ DEG_PAPER_CONFIGS = {
                        eps_opt=0.001, i_opt=5),
     "bench-small": DEGParams(degree=16, k_ext=32, eps_ext=0.3, k_opt=16,
                              eps_opt=0.001, i_opt=5),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPreset:
+    """Serving-side store configuration (post-training; orthogonal to the
+    build parameters).  ``codec`` is what the beam traverses, ``rerank_k``
+    how many candidates the exact second stage re-scores (0 = auto 4*k,
+    ignored for the exact codec), ``eps`` the beam's range slack (None =
+    the engine's default)."""
+
+    codec: str = "float32"
+    rerank_k: int = 0
+    eps: Optional[float] = None
+
+
+# the exact baseline, the 2x half-precision store, two sq8 points trading
+# rerank width for recall, and two pq points for the >= 8x tier.  pq's
+# coarser per-row error distorts the beam's stopping rule, not only the
+# final order, so its presets widen both knobs: eps=0.2 keeps candidates
+# that exact distances would have admitted, and the wider exact second
+# stage restores the order.
+QUANT_PRESETS = {
+    "exact": QuantPreset(),
+    "fp16": QuantPreset(codec="fp16", rerank_k=20),
+    "sq8-compact": QuantPreset(codec="sq8", rerank_k=20),
+    "sq8-serving": QuantPreset(codec="sq8", rerank_k=40),
+    "pq-compact": QuantPreset(codec="pq", rerank_k=80, eps=0.2),
+    "pq-serving": QuantPreset(codec="pq", rerank_k=120, eps=0.2),
 }
 
 

@@ -202,7 +202,7 @@ def expand(state: BeamState, adjacency: torch.Tensor, n_valid: int,
         1, cur, active.to(torch.uint8), "amax", include_self=True).bool()
 
     use_visited = state.visited is not None
-    if (hop_backend == "fused" and use_visited
+    if (hop_backend == "fused" and use_visited and store.exact
             and metric in ("l2", "sqeuclidean")):
         cand_ids, cand_d, nbr_out, evals_inc = fh_ops.fused_hop(
             adjacency, store.data, torch.where(active, sel_id, INVALID),

@@ -105,6 +105,8 @@ class DEGIndex:
         self._pending: list[np.ndarray] = []   # points before K_{d+1} exists
         self._rng = np.random.default_rng(0)
         self._medoid: Optional[int] = None     # cached medoid_seed entry
+        # codec -> VectorStore encoded from the current vector set
+        self._stores: dict = {}
         # per-stage wall time of _insert_wave (candidate search vs vertex
         # extension)
         self.build_stats = {"search_s": 0.0, "extend_s": 0.0, "vertices": 0}
@@ -128,12 +130,14 @@ class DEGIndex:
         vecs[: self.capacity] = self.vectors
         self.vectors = vecs
         self._dev_vectors = torch.tensor(vecs, device=self.device)
+        self._stores = {}
         if self.builder is not None:
             self.builder.grow(new_capacity)
 
     # -- device sync ---------------------------------------------------------
     def _put_rows(self, rows: np.ndarray, start: int) -> None:
         self._medoid = None                    # vector set changed
+        self._stores = {}
         self._dev_vectors[start : start + rows.shape[0]] = torch.as_tensor(
             np.asarray(rows, np.float32)).to(self.device)
 
@@ -389,11 +393,40 @@ class DEGIndex:
                             k_opt=self.params.k_opt,
                             eps_opt=self.params.eps_opt)
 
+    # -- compressed store views ---------------------------------------------
+    def store_for(self, codec: str):
+        """The :class:`repro_torch.quant.store.VectorStore` the beam
+        traverses under ``codec``: encoded once per codec and vector set,
+        and cached until the indexed vectors change."""
+        from repro_torch.quant.store import make_store
+
+        if codec not in self._stores:
+            self._stores[codec] = make_store(self._dev_vectors, codec,
+                                             n=self.n)
+        return self._stores[codec]
+
+    def memory_stats(self) -> dict:
+        """Bytes of the traversal store of the live rows under each codec.
+        The exact float32 copy the rerank reads (``rerank_k`` rows per
+        query, not per hop) is reported apart as ``exact_bytes``."""
+        from repro_torch.quant import codec as qc
+
+        n, m = self.n, self.dim
+        exact = qc.store_bytes("float32", n, m)
+        out = {"n": n, "dim": m, "exact_bytes": exact}
+        for name in qc.CODECS:
+            b = qc.store_bytes(name, n, m)
+            out[f"{name}_bytes"] = b
+            out[f"{name}_ratio"] = exact / b if b else 0.0
+        return out
+
     # -- queries --------------------------------------------------------------
     def search_batch(self, queries: np.ndarray,
                      seed_ids: Optional[np.ndarray] = None,
                      exclude: Optional[np.ndarray] = None, *, k: int,
                      eps: float = 0.1, beam_width: Optional[int] = None,
+                     quantized: Optional[str] = None,
+                     rerank_k: Optional[int] = None,
                      expand_width: Optional[int] = None,
                      visited_size: Optional[int] = None,
                      hop_backend: Optional[str] = None,
@@ -402,9 +435,14 @@ class DEGIndex:
         plain searches, exploration sessions and the insert waves.
 
         ``seed_ids`` (B, S) / ``exclude`` (B, X) go straight into the beam
-        engine.  ``expand_width`` / ``visited_size`` / ``hop_backend``
-        default to the index's ``DEGParams``; ``hop_budget`` (B,) caps each
-        lane's expansions."""
+        engine.  ``quantized`` picks the codec the beam traverses ("fp16",
+        "sq8" or "pq"; None or "float32" is the exact path).  With a
+        compressed codec the search is two-stage: the beam runs over
+        compressed distances, then its best ``rerank_k`` candidates
+        (default ``4 * k``) are re-scored exactly against the float rows.
+        ``expand_width`` / ``visited_size`` / ``hop_backend`` default to the
+        index's ``DEGParams``; ``hop_budget`` (B,) caps each lane's
+        expansions."""
         E = self.params.expand_width if expand_width is None else expand_width
         hb = self.params.hop_backend if hop_backend is None else hop_backend
         vs = self.params.visited_size if visited_size is None else visited_size
@@ -423,14 +461,22 @@ class DEGIndex:
             return None if x is None else torch.as_tensor(
                 np.asarray(x, np.int32)).to(self.device)
 
-        return range_search(self.frozen(), self._dev_vectors, q, seeds,
-                            k=k, eps=eps, beam_width=beam_width,
-                            metric=self.params.metric, exclude=dev_i32(exclude),
-                            expand_width=E, visited_size=vs, hop_backend=hb,
-                            hop_budget=dev_i32(hop_budget))
+        kw = dict(k=k, eps=eps, beam_width=beam_width,
+                  metric=self.params.metric, exclude=dev_i32(exclude),
+                  expand_width=E, visited_size=vs, hop_backend=hb,
+                  hop_budget=dev_i32(hop_budget))
+        if quantized in (None, "float32"):
+            return range_search(self.frozen(), self._dev_vectors, q, seeds,
+                                **kw)
+        rk = int(rerank_k) if rerank_k else 4 * k
+        return range_search(self.frozen(), self.store_for(quantized), q,
+                            seeds, rerank_k=max(rk, k),
+                            exact_vectors=self._dev_vectors, **kw)
 
     def search(self, queries: np.ndarray, k: int, eps: float = 0.1,
                beam_width: Optional[int] = None, seed: Optional[int] = None,
+               quantized: Optional[str] = None,
+               rerank_k: Optional[int] = None,
                expand_width: Optional[int] = None,
                visited_size: Optional[int] = None,
                hop_backend: Optional[str] = None) -> SearchResult:
@@ -439,7 +485,8 @@ class DEGIndex:
         q = np.atleast_2d(np.asarray(queries, np.float32))
         seeds = np.full((q.shape[0], 1), seed, dtype=np.int32)
         return self.search_batch(q, seeds, k=k, eps=eps,
-                                 beam_width=beam_width,
+                                 beam_width=beam_width, quantized=quantized,
+                                 rerank_k=rerank_k,
                                  expand_width=expand_width,
                                  visited_size=visited_size,
                                  hop_backend=hop_backend)

@@ -5,6 +5,10 @@ beam engine of :mod:`repro_torch.core.beam`.
 defaults and runs the engine; :func:`search_graph` adds the shared medoid
 seed.  Exploration queries (Sec. 6.7) pass ``exclude``: those vertices are
 removed from the result list (and the radius) but stay traversable.
+
+Over a compressed store (``quant/store.py``) the search is two-stage: the
+beam traverses compressed distances, then :func:`exact_rerank` re-scores
+its best ``rerank_k`` candidates against the exact float rows.
 """
 from __future__ import annotations
 
@@ -14,10 +18,8 @@ from typing import Optional
 import torch
 
 from . import beam
+from .distances import get_metric
 from .graph import DEGraph, INVALID
-
-_PENDING = ("the exact rerank comes with the compressed stores "
-            "(ROADMAP queue A6)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,15 +33,31 @@ class SearchResult:
     visited_frac: Optional[torch.Tensor] = None
 
 
-def exact_rerank(*args, **kwargs):
-    raise NotImplementedError(_PENDING)
+def exact_rerank(exact_vectors: torch.Tensor, queries: torch.Tensor,
+                 cand_ids: torch.Tensor, *, k: int, metric: str = "l2"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage two of the compressed search: re-score INVALID-padded (B, C)
+    candidate ids exactly against the float rows and return the exact
+    top-k (ids (B, k), dists (B, k)).  The sort is stable."""
+    invalid = cand_ids == INVALID
+    safe = torch.where(invalid, 0, cand_ids).to(torch.int64)
+    d = get_metric(metric).pair(queries[:, None, :],
+                                exact_vectors[safe].to(torch.float32))
+    d = torch.where(invalid, float("inf"), d)
+    order = torch.argsort(d, dim=1, stable=True)[:, :k]
+    out_ids = torch.gather(cand_ids, 1, order)
+    out_d = torch.gather(d, 1, order)
+    out_ids = torch.where(torch.isinf(out_d), INVALID, out_ids)
+    return out_ids, out_d
 
 
 def range_search(graph: DEGraph, vectors, queries: torch.Tensor,
                  seed_ids: torch.Tensor, *, k: int, eps: float = 0.1,
                  beam_width: Optional[int] = None, max_hops: int = 0,
                  metric: str = "l2", exclude: Optional[torch.Tensor] = None,
-                 rerank_k: int = 0, expand_width: int = 1,
+                 rerank_k: int = 0,
+                 exact_vectors: Optional[torch.Tensor] = None,
+                 expand_width: int = 1,
                  visited_size: Optional[int] = None,
                  hop_backend: str = "composed",
                  hop_budget: Optional[torch.Tensor] = None) -> SearchResult:
@@ -56,7 +74,10 @@ def range_search(graph: DEGraph, vectors, queries: torch.Tensor,
       beam_width: beam length L (defaults to a heuristic >= k).
       max_hops: bound on hop iterations (0 -> ``4 L + 64``).
       exclude: optional (B, X) int32 vertices excluded from results.
-      rerank_k: must be 0 until the compressed stores are ported.
+      rerank_k: two-stage search: take this many beam candidates and
+        re-score them exactly against ``exact_vectors`` (needs
+        ``rerank_k >= k``).  0 returns the store's own distances.
+      exact_vectors: (capacity, m) float32 exact rows for the rerank.
       expand_width: E, beam entries expanded per lane per hop.
       visited_size: per-lane visited-set slots (power of two).  None picks
         ``beam.default_visited_size`` for the fused hop (which needs the
@@ -65,8 +86,6 @@ def range_search(graph: DEGraph, vectors, queries: torch.Tensor,
         ``fused_hop`` kernel); both give the same results.
       hop_budget: optional (B,) int32 per-lane expansion caps.
     """
-    if rerank_k:
-        raise NotImplementedError(_PENDING)
     n_ex = exclude.shape[1] if exclude is not None else 0
     L = (beam_width if beam_width is not None
          else beam.default_beam_width(k, graph.degree, seed_ids.shape[1],
@@ -74,6 +93,12 @@ def range_search(graph: DEGraph, vectors, queries: torch.Tensor,
     L = max(L, k, seed_ids.shape[1])
     if exclude is not None:
         L = max(L, k + n_ex)
+    if rerank_k:
+        if rerank_k < k:
+            raise ValueError(f"rerank_k={rerank_k} must be >= k={k}")
+        if exact_vectors is None:
+            raise ValueError("rerank_k > 0 requires exact_vectors")
+        L = max(L, rerank_k + n_ex)   # room for rerank_k non-excluded hits
     if max_hops <= 0:
         max_hops = beam.default_max_hops(L)
     if visited_size is None:
@@ -88,12 +113,20 @@ def range_search(graph: DEGraph, vectors, queries: torch.Tensor,
         max_hops=max_hops, metric=metric, exclude=exclude,
         expand_width=expand_width, visited_size=visited_size,
         hop_backend=hop_backend, hop_budget=hop_budget)
-    out_ids, out_d = beam.extract(state, k, dedup=dedup)
+    if rerank_k:
+        cand_ids, _ = beam.extract(state, rerank_k, dedup=dedup)
+        out_ids, out_d = exact_rerank(exact_vectors, queries, cand_ids, k=k,
+                                      metric=metric)
+        evals = state.evals + (cand_ids != INVALID).sum(dim=1,
+                                                        dtype=torch.int32)
+    else:
+        out_ids, out_d = beam.extract(state, k, dedup=dedup)
+        evals = state.evals
     visited_frac = None
     if state.visited is not None:
         visited_frac = (state.visited != INVALID).to(torch.float32).mean(dim=1)
     return SearchResult(ids=out_ids, dists=out_d, hops=state.hops,
-                        evals=state.evals, visited_frac=visited_frac)
+                        evals=evals, visited_frac=visited_frac)
 
 
 def medoid_seed(vectors: torch.Tensor, n: int) -> int:
@@ -108,16 +141,21 @@ def search_graph(graph: DEGraph, vectors: torch.Tensor,
                  seed: Optional[int] = None, beam_width: Optional[int] = None,
                  max_hops: int = 0, metric: str = "l2",
                  exclude: Optional[torch.Tensor] = None,
+                 rerank_k: int = 0,
+                 exact_vectors: Optional[torch.Tensor] = None,
                  expand_width: int = 1, visited_size: Optional[int] = None,
                  hop_backend: str = "composed") -> SearchResult:
     """Single shared seed (the medoid by default), otherwise the
-    :func:`range_search` signature."""
+    :func:`range_search` signature.  ``vectors`` is also the medoid's
+    source: when a compressed store is searched with ``rerank_k``, pass the
+    float rows as ``exact_vectors`` and an explicit ``seed``."""
     if seed is None:
         seed = medoid_seed(vectors, graph.n)
     seeds = torch.full((queries.shape[0], 1), seed, dtype=torch.int32,
                        device=queries.device)
     return range_search(graph, vectors, queries, seeds, k=k, eps=eps,
                         beam_width=beam_width, max_hops=max_hops,
-                        metric=metric, exclude=exclude,
+                        metric=metric, exclude=exclude, rerank_k=rerank_k,
+                        exact_vectors=exact_vectors,
                         expand_width=expand_width, visited_size=visited_size,
                         hop_backend=hop_backend)

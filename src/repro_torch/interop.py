@@ -2,13 +2,16 @@
 
 :func:`graph_from_numpy` / :func:`index_from_numpy` turn a JAX
 ``DEGIndex``'s state (adjacency, weights, n, vectors, params) into the
-port's, so both packages search the same graph.  The ``*_to_numpy``
+port's, so both packages search the same graph; :func:`store_from_numpy`
+does the same for a compressed store's codes, so both search the same
+codes whatever their encoders do.  The ``*_to_numpy``
 functions bring the port's tensors back, so tests compare with
 ``np.testing`` and never tensor against array.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -17,6 +20,7 @@ from repro_torch.core.beam import BeamState
 from repro_torch.core.build import DEGIndex, DEGParams
 from repro_torch.core.graph import DEGraph, GraphBuilder
 from repro_torch.core.search import SearchResult
+from repro_torch.quant.store import VectorStore
 
 # the JAX package's hop_backend values -> the port's
 HOP_BACKEND = {"jnp": "composed", "pallas": "fused",
@@ -56,6 +60,30 @@ def index_from_numpy(vectors, adjacency, weights, n, params: dict,
     idx.builder = GraphBuilder(adjacency.shape[0], p.degree, device)
     idx.builder.load(adjacency, np.asarray(weights, np.float32), int(n))
     return idx
+
+
+def store_from_numpy(data, scale, codec: str, codebooks=None,
+                     device="cuda") -> VectorStore:
+    """A port store from a JAX ``VectorStore``'s arrays.  The JAX package
+    keeps a scale of ones beside every codec; the port keeps one for sq8
+    only, so any other codec's ``scale`` is dropped."""
+    t = functools.partial(torch.tensor, device=device)
+    return VectorStore(
+        data=t(np.asarray(data)), codec=codec,
+        scale=t(np.asarray(scale, np.float32)) if codec == "sq8" else None,
+        codebooks=(None if codebooks is None
+                   else t(np.asarray(codebooks, np.float32))))
+
+
+def store_to_numpy(store: VectorStore) -> dict:
+    """data, scale (ones for every codec but sq8, as the JAX package keeps
+    them), codec and codebooks (None but for pq)."""
+    scale = (store.scale.cpu().numpy() if store.scale is not None
+             else np.ones((store.dim,), np.float32))
+    return {"data": store.data.cpu().numpy(), "scale": scale,
+            "codec": store.codec,
+            "codebooks": (None if store.codebooks is None
+                          else store.codebooks.cpu().numpy())}
 
 
 def graph_to_numpy(graph: DEGraph) -> dict:

@@ -59,6 +59,46 @@ def test_phase2_rows(rehearsal):
     for r in rows.values():
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
         assert r["max_abs_err"] == 0.0          # both sides are plain here
+    # at d=20 computing pq_adc's distances straight from the code rows
+    # (3 * d * m flops a query) is cheaper than the whole table (3 * 256 * m),
+    # and then its bytes (codebooks, queries, code rows) bound it, as they
+    # bound the gathers
+    assert rows["pq_adc"]["bound_by"] == "bytes"
+    assert rows["gather_dist_q"]["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("check, kw, shape", [
+    (cs.check_gather_dist, dict(B=cs.BATCH, rows="f16"), "f16"),
+    (cs.check_gather_dist, dict(B=cs.BATCH, rows="bf16"), "bf16"),
+    (cs.check_gather_dist_q, dict(d=20), "d=20"),
+    (cs.check_gather_dist_q, dict(d=80), "d=80"),
+    (cs.check_pq_adc, dict(d=20), "m_sub=24"),
+    (cs.check_pq_adc, dict(d=80), "d=80"),
+])
+def test_phase2_compressed_checks(rehearsal, check, kw, shape):
+    inp = cs.phase2_inputs("cpu", N=3000)
+    r = check(inp, "cpu", **kw)
+    assert shape in r["shape"] and r["max_abs_err"] == 0.0
+    assert r["bound_ms"] > 0
+
+
+def test_store_bytes_at_audio_size():
+    assert cs.expected_store_bytes(cs.N_AUDIO, cs.DIM) == cs.AUDIO_STORE_BYTES
+
+
+def test_held_bytes_reads_the_tensors():
+    """Phase 4b holds memory_stats() against the stores' own tensors, so a
+    store that kept float32 rows under the fp16 codec is caught."""
+    import torch
+    from repro_torch.quant.store import VectorStore, make_store
+
+    rows = torch.tensor(np.random.default_rng(0).normal(size=(40, 16)),
+                        dtype=torch.float32)
+    stats = {"fp16_bytes": 30 * 16 * 2, "sq8_bytes": 30 * 16 + 16 * 4}
+    cs.check_held_bytes(make_store(rows, "fp16", n=30), stats, 30)
+    cs.check_held_bytes(make_store(rows, "sq8", n=30), stats, 30)
+    with pytest.raises(AssertionError, match="holds 1,920 bytes"):
+        cs.check_held_bytes(VectorStore(data=rows, codec="fp16"), stats, 30)
 
 
 def test_build_and_serve(served):
@@ -78,7 +118,22 @@ def test_compare_then_refine(served):
     idx, queries, _, out = served
     ids = cs.wave_phase(idx, queries)
     calls = cs.explore_phase(idx, sessions=4, hops=3)
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    quant = cs.quant_serve_phase(
+        idx, queries, out["gt"],
+        lambda fn, *a, **kw: cs.counted(ops, launches, fn, *a, **kw),
+        batch=BATCH)
+    assert set(quant) == set(cs.QUANT_SERVED)
+    for name, res in quant.items():
+        assert res["recall"] >= cs.RECALL_FLOOR, name
+        assert res["ids"].shape == (N_QUERIES, cs.K)
+    assert quant["pq-serving"]["fit_s"] > 0 and quant["fp16"]["fit_s"] == 0
+    assert set(idx._stores) == {"fp16", "sq8", "pq"}
+    assert all(n == 0 for n in launches.values()), launches  # CPU: plain
     cs.compare_plain_phase(idx, queries, out, ids, calls, batch=BATCH,
+                           n_compare=BATCH)
+    cs.compare_quant_phase(idx, queries, out["gt"], quant, batch=BATCH,
                            n_compare=BATCH)
     adj0 = idx.builder.adjacency.copy()
     refined = cs.refine_phase(idx, queries, out["gt"], "cpu", vertices=16)

@@ -80,12 +80,14 @@ def test_device_twin_syncs_dirty_rows_and_full_uploads():
 
 
 def test_store_clips_decode_and_refuses_compressed_codecs():
+    """Decode clips ids to the table; a codec the store does not know (a
+    4-bit one, say) is refused."""
     data = torch.arange(12, dtype=torch.float32).reshape(4, 3)
     s = VectorStore(data)
     got = s.decode(torch.tensor([[-1, 0, 3, 9]], dtype=torch.int32))
     np.testing.assert_array_equal(got[0, :, 0].numpy(), [0, 0, 9, 9])
-    for codec in ("fp16", "sq8", "pq"):
-        with pytest.raises(NotImplementedError, match="A6"):
+    for codec in ("int4", "pq4", "float64"):
+        with pytest.raises(ValueError, match="unknown codec"):
             VectorStore(data, codec=codec)
 
 
@@ -113,9 +115,9 @@ def test_wrappers_raise_off_cpu_and_off_cuda():
 
 def test_kernel_build_keys_cover_every_source():
     assert _build.sources() == ["beam_merge", "fused_hop", "gather_dist",
-                                "mrng_occlusion"]
+                                "gather_dist_q", "mrng_occlusion", "pq_adc"]
     keys = {_build._target(n).name for n in _build.sources()}
-    assert len(keys) == 4 and all(k.endswith(".so") for k in keys)
+    assert len(keys) == 6 and all(k.endswith(".so") for k in keys)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 

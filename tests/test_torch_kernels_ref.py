@@ -51,7 +51,9 @@ def test_gather_dist_plain_matches_jax(N, m, B, d, squared):
 
 
 def test_gather_dist_rejects_what_the_kernel_does_not_take():
-    v = torch.zeros((4, 8), dtype=torch.float16)
+    """float64 rows and int64 ids are refused (float32, fp16 and bf16 rows
+    with int32 ids are what the kernel takes)."""
+    v = torch.zeros((4, 8), dtype=torch.float64)
     with pytest.raises(TypeError):
         gd_ops.gather_dist(v, torch.zeros((1, 2), dtype=torch.int32),
                            torch.zeros((1, 8)))
