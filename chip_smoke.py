@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of DEG on one NVIDIA card: build its CUDA kernels,
 hold each against its plain PyTorch version, build an index at the
-paper's audio size, serve queries and exploration sessions from it, serve
-from its compressed stores (fp16, sq8, pq), refine it, and serve again.
+paper's audio size, take the exact ground truth from the brute-force scan,
+serve queries and exploration sessions from the index, serve from its
+compressed stores (fp16, sq8, pq), build and serve the paper's baseline
+graphs, refine the index, delete vertices from it, and serve again.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -17,21 +19,35 @@ Phases (any failure raises and exits non-zero):
      batched first search, B=REFINE_LANES, and a live one, B=1), and
      the compressed stores' (gather_dist on fp16 rows, gather_dist_q on
      sq8 codes and pq_adc on pq codes at B=256, d=20 and, for an E=4 hop,
-     80; the merges at their rerank-wide beams), with times;
+     80; the merges at their rerank-wide beams), and the brute-force
+     l2_topk at the serving batch (B=256, k in {10, 100}), a single query,
+     a ragged shape (B=37, N=1000, m=33, k=50), the padding case (B=3,
+     N=130, m=16, k=50) and the ground truths of phases 4 and 4c, with
+     times;
   3. build: make_dataset("manifold", n, 10000, 192) under the paper's
      audio parameters (degree 20, k_ext 40, eps_ext 0.3), the device
      extension in blocks of 16, wave_size=64, then the Table-1
      invariants; the idle share of one wave search and of one extend
      block; then the host extension on a build of N_HOST vertices;
-  4. serve: 10,000 queries in batches of 256 (k=10, eps=0.1) under the
-     "classic" and "multi-e4-fused" presets, recall@10 against exact k-NN
-     on the card, and 8 exploration sessions of 4 hops;
+  4. ground truth: BruteForceIndex(base).search(backend="kernel"), the
+     l2_topk kernel over all 10,000 queries, held against
+     exact_knn_batched (ids equal on GT_AGREE of the slots, every other
+     slot a tie); then serve: 10,000 queries in batches of 256 (k=10,
+     eps=0.1) under the "classic" and "multi-e4-fused" presets, recall@10
+     against that ground truth, and 8 exploration sessions of 4 hops;
   4b. compressed serving on the same graph: for the "fp16", "sq8-serving"
      and "pq-serving" QUANT_PRESETS under "classic", the store's encode
      seconds (pq's host fit apart), memory_stats() against the bytes
      written out and against the bytes each store's tensors hold, 10,000
      queries (QPS, recall@10, hops, evals), the idle
      share of one batch;
+  4c. baselines on the first N_HOST rows and N_BASELINE_QUERIES queries:
+     the kGraph (nn_descent, K=20, 6 iterations) searched from vertex 0,
+     the random even-regular graph (degree 20, Table-1) searched from the
+     medoid, and NSW (f=10, max_degree=60, k_search 40, eps 0.2) over the
+     first N_NSW rows; build seconds, QPS and recall@10 against the
+     kernel's ground truth, and each graph's first 256 queries again
+     through the plain versions;
   5. refine: Alg. 5 over REFINE_VERTICES vertices under the audio
      config's k_opt, eps_opt and i_opt, the average neighbor distance
      (Eq. 4) before and after, Table-1, the idle share of one chunk; then
@@ -42,10 +58,15 @@ Phases (any failure raises and exits non-zero):
      chunk
      (equal adjacency and improved edges), and a device-extend build of
      N_HOST vertices with the kernels and with the plain versions;
-  7. the kernels' JSON line, then the final JSON line.
+  7. delete: idx.remove() of N_DELETE vertices drawn from seed 0 after
+     refinement, Table-1, the ground truth recomputed over the remaining
+     rows, "classic" served again (recall@10 >= 0.90, no deleted vector
+     returned);
+  8. the kernels' JSON line, then the final JSON line.
 
-The kernels' launch counters read the builds, the timed serving loops
-(compressed ones too), the exploration sessions and the refinement only;
+The kernels' launch counters read the builds, the ground truths, the
+timed serving loops (compressed ones and the baselines' too), the
+exploration sessions, the refinement and the deletion only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.
 
@@ -83,15 +104,26 @@ K_OPT = 20                         # the audio config's k_opt
 EXTEND_BLOCK, CHUNK = 16, 16       # DEGParams.extend_block; refine chunk
 REFINE_LANES = 75                  # a chunk's edge tasks (about 4.7 per vertex)
 N_HOST = 4_000                     # the host-extension and comparison builds
-# 0.5% of the audio graph: refinement costs about 0.5 s per vertex on one
-# H100 (single-lane host hop loops, PERF.md), so 1,024 vertices would take
-# the run to within a slow host of 900 s
-REFINE_VERTICES = 256
+# 0.25% of the audio graph: refinement costs about 0.5 s per vertex on one
+# H100 (single-lane host hop loops, PERF.md); 256 vertices left the run
+# too little room for the baselines and the deletion within 900 s
+REFINE_VERTICES = 128
 EXPLORE_SESSIONS, EXPLORE_HOPS = 8, 4
 PHASE2 = dict(B=256, d=20, m=192, L=30, V=1024)
 RECALL_FLOOR = 0.90
 AGREE_FLOOR = 0.99
 RECALL_GAP = 0.005
+GT_AGREE = 0.999                   # kernel vs exact_knn_batched id slots
+GT_RTOL = 1e-5                     # a differing slot must be a tie
+# phase 4c: the baselines of benchmarks/qps_recall.py at degree 20
+N_BASELINE_QUERIES = 1_000
+KNNG_K, KNNG_ITERS = 20, 6
+NSW_F, NSW_MAX_DEGREE, NSW_K_SEARCH, NSW_EPS = 10, 60, 40, 0.2
+# every NSW insert is a single-lane search on the host hop loop: at 1,000
+# rows (989 searches of about 93 hops) the build took 163.6 s on one H100,
+# which left the run 32 s inside 900 s
+N_NSW = 500
+N_DELETE = 512                     # phase 7
 
 KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
@@ -100,6 +132,7 @@ KERNELS = {
     "mrng_occlusion": "src/repro/kernels/mrng_occlusion/mrng_occlusion.py:50",
     "gather_dist_q": "src/repro/kernels/gather_dist_q/gather_dist_q.py:37",
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
+    "l2_topk": "src/repro/kernels/l2_topk/l2_topk.py:93",
 }
 # phase 4b: the compressed stores served under the "classic" preset
 QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
@@ -342,6 +375,74 @@ def check_pq_adc(inp, device, d, m_sub=24) -> dict:
                 tol="rtol 1e-5")
 
 
+def _near_queries(inp, B, device):
+    """B queries near random rows of the phase-2 vectors, as
+    ``phase2_inputs`` makes its 256."""
+    import torch
+
+    rng, N, m = inp["rng"], inp["N"], PHASE2["m"]
+    q = inp["vectors"][torch.tensor(rng.integers(0, N, B), device=device)]
+    return q + 0.3 * torch.tensor(rng.normal(size=(B, m)).astype(np.float32),
+                                  device=device)
+
+
+def true_dists(q, x, ids, squared=False):
+    """float64 distances of each query to the rows its ids name."""
+    diff = q[:, None, :].double() - x[ids.long()].double()
+    d2 = (diff * diff).sum(-1)
+    return d2 if squared else d2.sqrt()
+
+
+def check_l2_topk(inp, device, B, k, N=None, m=None,
+                  reps=TIMING_REPS) -> dict:
+    """The brute-force scan: B queries near the phase-2 rows against all
+    N_AUDIO of them, or (with ``N`` and ``m``) seeded normal queries and
+    rows of that ragged shape.  Distances at rtol and atol 1e-5; ids
+    through their true distances at 1e-4 (an id may differ on a tie);
+    every id in [0, N)."""
+    import torch
+    from repro_torch.kernels.l2_topk import ops
+
+    if N is None:
+        x, N, m = inp["vectors"], inp["N"], PHASE2["m"]
+        q = inp["queries"][:B] if B <= len(inp["queries"]) else \
+            _near_queries(inp, B, device)
+    else:
+        rng = inp["rng"]
+        x = torch.tensor(rng.normal(size=(N, m)).astype(np.float32),
+                         device=device)
+        q = torch.tensor(rng.normal(size=(B, m)).astype(np.float32),
+                         device=device)
+    err, same = 0.0, 1.0
+    for squared in (False, True):
+        got_d, got_i = ops.l2_topk(q, x, k, squared=squared)
+        want_d, want_i = ops.l2_topk(q, x, k, squared=squared, impl="ref")
+        torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-5)
+        if not bool(((got_i >= 0) & (got_i < N)).all()):
+            raise AssertionError(f"l2_topk (B={B} N={N} m={m} k={k}) "
+                                 "returned an id outside [0, N)")
+        torch.testing.assert_close(true_dists(q, x, got_i, squared),
+                                   want_d.double(), rtol=1e-4, atol=1e-4)
+        if not squared:
+            err = float((got_d - want_d).abs().max())
+            same = float((got_i == want_i).float().mean())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qn = torch.sum(q * q, dim=1, keepdim=True)
+    xn = torch.sum(x * x, dim=1)
+    t = time_call(lambda: ops.l2_topk(q, x, k), "l2_topk_kernel", reps)
+    tp = time_call(lambda: ops.l2_topk(q, x, k, impl="ref"), reps=reps)
+    tl = time_call(lambda: torch.topk(
+        torch.addmm(xn[None, :], q, x.T, alpha=-2.0).add_(qn), k, dim=1,
+        largest=False), reps=reps)
+    nb = (B + N) * m * 4 + B * k * 8
+    bms, by = bound_ms(nb, 2 * B * N * m)
+    return dict(name="l2_topk", max_abs_err=err, t=t, tp=tp, tl=tl,
+                bound_ms=bms, bound_by=by,
+                shape=f"B={B} N={N} m={m} k={k} f32 l2, ids equal "
+                      f"{same:.4%}",
+                tol="dists rtol 1e-5; ids by true distance 1e-4")
+
+
 def _beam(rng, B, L, C, device):
     import torch
 
@@ -496,7 +597,7 @@ def last_block(n: int, degree: int) -> int:
     return (n - degree - 1) % WAVE % EXTEND_BLOCK or EXTEND_BLOCK
 
 
-def phase2(device, n_build=N_AUDIO) -> dict:
+def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
     from repro_torch.configs.deg import QUANT_PRESETS
     from repro_torch.core.beam import default_beam_width
 
@@ -539,7 +640,20 @@ def phase2(device, n_build=N_AUDIO) -> dict:
                check_beam_merge(inp, device, B, L_pq, d),
                check_beam_merge(inp, device, B, L_pq, 4 * d),
                # bf16 rows: on no path yet, but built into gather_dist.cu
-               check_gather_dist(inp, device, B, rows="bf16")]
+               check_gather_dist(inp, device, B, rows="bf16"),
+               # the brute-force scan: the ground truth of phase 4 (over
+               # every query; its plain version holds the whole (B, N)
+               # matrix, so fewer timing runs) and of phase 4c's baselines,
+               # the serving batch, a single query, a ragged shape and the
+               # padding case
+               check_l2_topk(inp, device, n_queries, K, reps=5),
+               check_l2_topk(inp, device, N_BASELINE_QUERIES, K,
+                             N=N_HOST, m=PHASE2["m"]),
+               check_l2_topk(inp, device, B, K),
+               check_l2_topk(inp, device, B, 100),
+               check_l2_topk(inp, device, 1, K),
+               check_l2_topk(inp, device, 37, 50, N=1000, m=33),
+               check_l2_topk(inp, device, 3, 50, N=130, m=16)]
     for r in results:
         tl = r["tl"]
         log(f"phase2 {r['name']} [{r['shape']}] ok ({r['tol']}): "
@@ -551,11 +665,12 @@ def phase2(device, n_build=N_AUDIO) -> dict:
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
             f"max_abs_err {r['max_abs_err']:.3g}")
     # the JSON rows carry the main path's shapes: the classic hop's merge
-    # (C = d), the fused preset's hop (E = 4) and an extend block's lune
-    # test (K = k_ext), the build's launches
+    # (C = d), the fused preset's hop (E = 4), an extend block's lune
+    # test (K = k_ext), the build's launches, and the ground truth's scan
     return {"gather_dist": results[0], "beam_merge": results[1],
             "fused_hop": results[4], "mrng_occlusion": results[9],
-            "gather_dist_q": results[16], "pq_adc": results[17]}
+            "gather_dist_q": results[16], "pq_adc": results[17],
+            "l2_topk": results[25]}
 
 
 # ---------------------------------------------------------------------------
@@ -568,6 +683,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.fused_hop import ops as fh_ops
     from repro_torch.kernels.gather_dist import ops as gd_ops
     from repro_torch.kernels.gather_dist_q import ops as gdq_ops
+    from repro_torch.kernels.l2_topk import ops as l2_ops
     from repro_torch.kernels.mrng_occlusion import ops as mo_ops
     from repro_torch.kernels.pq_adc import ops as adc_ops
 
@@ -577,7 +693,8 @@ def launch_counters() -> dict:
             "fused_hop": (fh_ops, "launches"),
             "mrng_occlusion": (mo_ops, "launches"),
             "gather_dist_q": (gdq_ops, "launches"),
-            "pq_adc": (adc_ops, "launches")}
+            "pq_adc": (adc_ops, "launches"),
+            "l2_topk": (l2_ops, "launches")}
 
 
 def counted(ops: dict, total: dict, fn, *args, **kwargs):
@@ -695,13 +812,14 @@ def plain_kernels():
     from repro_torch.kernels.fused_hop import ops as fh
     from repro_torch.kernels.gather_dist import ops as gd
     from repro_torch.kernels.gather_dist_q import ops as gdq
+    from repro_torch.kernels.l2_topk import ops as l2
     from repro_torch.kernels.mrng_occlusion import ops as mo
     from repro_torch.kernels.pq_adc import ops as adc
 
     saved = [(m, name, getattr(m, name)) for m, name in
              ((bm, "beam_merge"), (fh, "fused_hop"), (gd, "gather_dist"),
               (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
-              (adc, "pq_adc"))]
+              (adc, "pq_adc"), (l2, "l2_topk"))]
     try:
         for m, name, fn in saved:
             setattr(m, name, functools.partial(fn, impl="ref"))
@@ -709,6 +827,18 @@ def plain_kernels():
     finally:
         for m, name, fn in saved:
             setattr(m, name, fn)
+
+
+def _batches(search, queries, batch):
+    """Run ``search`` (host queries -> SearchResult) over ``queries`` in
+    batches; returns host ids, hops and evals."""
+    ids, hops, evals = [], [], []
+    for lo in range(0, len(queries), batch):
+        r = search(queries[lo : lo + batch])
+        ids.append(r.ids.cpu().numpy())
+        hops.append(r.hops.cpu().numpy())
+        evals.append(r.evals.cpu().numpy())
+    return np.concatenate(ids), np.concatenate(hops), np.concatenate(evals)
 
 
 def _serve(idx, queries, preset, k, eps, batch, quant=None):
@@ -719,35 +849,60 @@ def _serve(idx, queries, preset, k, eps, batch, quant=None):
     if quant is not None:
         eps = eps if quant.eps is None else quant.eps
         kw = dict(quantized=quant.codec, rerank_k=quant.rerank_k or None)
-    ids, hops, evals = [], [], []
-    for lo in range(0, len(queries), batch):
-        r = idx.search_batch(queries[lo : lo + batch], k=k, eps=eps,
-                             expand_width=preset.expand_width,
-                             hop_backend=preset.hop_backend,
-                             visited_size=preset.visited_size,
-                             beam_width=preset.beam_width, **kw)
-        ids.append(r.ids.cpu().numpy())
-        hops.append(r.hops.cpu().numpy())
-        evals.append(r.evals.cpu().numpy())
-    return np.concatenate(ids), np.concatenate(hops), np.concatenate(evals)
+    return _batches(lambda q: idx.search_batch(
+        q, k=k, eps=eps, expand_width=preset.expand_width,
+        hop_backend=preset.hop_backend, visited_size=preset.visited_size,
+        beam_width=preset.beam_width, **kw), queries, batch)
+
+
+def ground_truth(base, queries, device, count=None, *, k=K,
+                 tag="phase4") -> np.ndarray:
+    """Exact k-NN ids of ``queries`` over ``base``: the brute-force scan
+    through the ``l2_topk`` kernel (``BruteForceIndex.search(backend=
+    "kernel")``, through ``count``), held against ``exact_knn_batched``:
+    ids equal on GT_AGREE of the slots and every other slot a tie (the two
+    distances there within GT_RTOL).  Prints both times and the serial
+    scan's queries per second."""
+    from repro_torch.core.baselines import BruteForceIndex
+    from repro_torch.core.distances import exact_knn_batched
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    bf = BruteForceIndex(base, device=device)
+    sync()
+    t0 = time.perf_counter()
+    d, ids = count(bf.search, queries, k, backend="kernel")
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d_ref, ids_ref = exact_knn_batched(queries, base, k, device=device)
+    secs_ref = time.perf_counter() - t0
+    same = float((ids == ids_ref).mean())
+    diff = ids != ids_ref
+    ties = np.isclose(d[diff], d_ref[diff], rtol=GT_RTOL, atol=0.0)
+    log(f"{tag} ground truth of {len(queries)} queries over {len(base)} "
+        f"rows: l2_topk scan {secs:.3f} s = {len(queries) / secs:.1f} QPS "
+        f"(serial scan), exact_knn_batched {secs_ref:.3f} s; ids equal on "
+        f"{same:.4%} of {ids.size} slots, {int(diff.sum())} differing "
+        f"slots, {int(ties.sum())} of them ties within rtol {GT_RTOL}")
+    if same < GT_AGREE or not ties.all():
+        raise AssertionError(f"{tag}: the l2_topk ground truth disagrees "
+                             "with exact_knn_batched")
+    np.testing.assert_allclose(d, d_ref, rtol=GT_RTOL, atol=GT_RTOL)
+    return ids
 
 
 def serve_phase(idx, base, queries, device, count=None, *, k=K, eps=EPS,
                 batch=BATCH, gt=None, presets=("classic", "multi-e4-fused"),
                 tag="phase4") -> dict:
     """Serve every query under each preset; returns each preset's result
-    and, under "gt", the exact k-NN ids (computed unless given).  Only the
-    timed loops go through ``count``."""
+    and, under "gt", the exact k-NN ids (the brute-force scan of
+    ``ground_truth`` unless given).  Only the ground truth and the timed
+    loops go through ``count``."""
     from repro_torch.configs.deg import SEARCH_PRESETS
-    from repro_torch.core.distances import exact_knn_batched
     from repro_torch.core.metrics import recall_at_k
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
     if gt is None:
-        t0 = time.perf_counter()
-        _, gt = exact_knn_batched(queries, base, k, device=device)
-        log(f"{tag} exact k-NN of {len(queries)} queries on the device: "
-            f"{time.perf_counter() - t0:.2f} s")
+        gt = ground_truth(base, queries, device, count, k=k, tag=tag)
     out = {"gt": gt}
     for name in presets:
         preset = SEARCH_PRESETS[name]
@@ -999,6 +1154,124 @@ def refine_chunk_phase(idx) -> None:
     idx.refine_stats = stats
 
 
+def baselines_phase(base, queries, device, count=None, *, n=N_HOST,
+                    n_nsw=N_NSW, n_query=N_BASELINE_QUERIES, k=K, eps=EPS,
+                    batch=BATCH, n_compare=256) -> dict:
+    """Phase 4c: the paper's baseline graphs over the first ``n`` rows
+    (NSW: ``n_nsw``), as benchmarks/qps_recall.py sets them at degree 20.
+    For each: build seconds, QPS and recall@k of ``n_query`` queries
+    against the kernel's ground truth (recorded, no floor), and its first
+    ``n_compare`` queries again through the plain versions (ids equal on
+    AGREE_FLOOR of the slots).  The random-regular graph must hold
+    Table-1."""
+    import torch
+    from repro_torch.configs.deg import DEG_PAPER_CONFIGS
+    from repro_torch.core.baselines import (NSWIndex, build_knng,
+                                            random_regular_index)
+    from repro_torch.core.invariants import check_table1
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.core.search import search_graph
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    sub, qs = base[:n], queries[:n_query]
+    gt = ground_truth(sub, qs, device, count, k=k, tag="phase4c")
+    gt_nsw = ground_truth(base[:n_nsw], qs, device, count, k=k,
+                          tag="phase4c nsw")
+    params = DEG_PAPER_CONFIGS["audio"]
+    built = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = count(fn, *a, **kw)
+        sync()
+        built[name] = time.perf_counter() - t0
+        return out
+
+    kg = timed("kgraph", build_knng, sub, K=KNNG_K, iterations=KNNG_ITERS,
+               device=device)
+    rr = timed("random-regular", random_regular_index, sub, params, seed=0,
+               device=device)
+    nsw = NSWIndex(sub.shape[1], f=NSW_F, max_degree=NSW_MAX_DEGREE,
+                   k_search=NSW_K_SEARCH, eps=NSW_EPS, capacity=n_nsw,
+                   device=device)
+    timed("nsw", nsw.add, base[:n_nsw])
+    inv = check_table1(rr.builder)
+    log(f"phase4c random-regular graph (n={rr.n}, degree {params.degree}) "
+        f"table-1: {inv}")
+    if not all(inv.values()):
+        raise AssertionError(f"random-regular graph breaks Table-1: {inv}")
+    kg_vecs = torch.as_tensor(sub, device=device)
+    searches = {
+        "kgraph": (lambda q: search_graph(
+            kg, kg_vecs, torch.as_tensor(q, device=device), k=k, eps=eps,
+            seed=0), gt, f"n={n} K={KNNG_K} iterations={KNNG_ITERS}"),
+        "random-regular": (lambda q: rr.search_batch(q, k=k, eps=eps), gt,
+                           f"n={n} degree={params.degree}"),
+        "nsw": (lambda q: nsw.search(q, k=k, eps=eps), gt_nsw,
+                f"n={n_nsw} f={NSW_F} max_degree={NSW_MAX_DEGREE} "
+                f"k_search={NSW_K_SEARCH} eps={NSW_EPS}"),
+    }
+    out = {}
+    for name, (search, truth, what) in searches.items():
+        _batches(search, qs[:batch], batch)                     # warm-up
+        sync()
+        t0 = time.perf_counter()
+        ids, hops, evals = count(_batches, search, qs, batch)
+        secs = time.perf_counter() - t0
+        rec = recall_at_k(ids, truth)
+        log(f"phase4c {name} ({what}): built in {built[name]:.2f} s; "
+            f"{len(qs)} queries (k={k}, eps={eps}) in {secs:.3f} s = "
+            f"{len(qs) / secs:.1f} QPS, recall@{k} {rec:.4f}, mean hops "
+            f"{hops.mean():.2f}, mean evals {evals.mean():.1f}")
+        with plain_kernels():
+            plain, _, _ = _batches(search, qs[:n_compare], batch)
+        _agree(f"{name}, {n_compare} queries", plain, ids[:n_compare])
+        out[name] = dict(build_s=built[name], qps=len(qs) / secs,
+                         recall=rec, hops=float(hops.mean()),
+                         evals=float(evals.mean()))
+    return out
+
+
+def delete_phase(idx, queries, device, count=None, *,
+                 n_delete=N_DELETE) -> dict:
+    """Phase 7: ``idx.remove`` of ``n_delete`` distinct vertices drawn from
+    seed 0; every one must go, ``n`` shrinks by as many and Table-1
+    holds.  Then the ground truth over the remaining rows and "classic"
+    served again: recall@10 >= RECALL_FLOOR, and no returned id names a
+    row equal to a deleted vector."""
+    from repro_torch.core.invariants import check_table1
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    n0 = idx.n
+    ids = np.random.default_rng(0).choice(n0, size=n_delete, replace=False)
+    gone = {row.tobytes() for row in idx.vectors[ids]}
+    t0 = time.perf_counter()
+    done = count(idx.remove, ids)
+    sync()
+    secs = time.perf_counter() - t0
+    log(f"phase7 delete: {done} of {n_delete} vertices in {secs:.2f} s = "
+        f"{secs / n_delete * 1e3:.3f} ms per deletion; n {n0} -> {idx.n}")
+    if done != n_delete or idx.n != n0 - n_delete:
+        raise AssertionError(f"removed {done} of {n_delete} vertices, n "
+                             f"{n0} -> {idx.n}")
+    inv = check_table1(idx.builder)
+    log(f"phase7 table-1 after deletion: {inv}")
+    if not all(inv.values()):
+        raise AssertionError(f"Table-1 invariants broken: {inv}")
+    gt = ground_truth(idx.vectors[: idx.n], queries, device, count,
+                      tag="phase7")
+    out = serve_phase(idx, None, queries, device, count, gt=gt,
+                      presets=("classic",), tag="phase7 after deletion")
+    found = out["classic"]["ids"]
+    rows = idx.vectors[found[found >= 0]]
+    hits = sum(row.tobytes() in gone for row in rows)
+    log(f"phase7 {rows.shape[0]} returned ids, {hits} of them a deleted "
+        "vector")
+    if hits:
+        raise AssertionError(f"{hits} returned ids name deleted vectors")
+    return out
+
+
 def compare_extend_phase(device, n=N_HOST) -> float:
     """A device-extend build of ``n`` vertices with the kernels and with
     the plain versions: the share of vertices with equal neighbor sets."""
@@ -1132,10 +1405,11 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # phase 2
-    checks = phase2(device, args.n)
+    checks = phase2(device, args.n, args.queries)
 
-    # phases 3-5: the main path (builds, timed serving, exploration,
-    # compressed serving, refinement), each piece counted on its own;
+    # phases 3-5 and 7: the main path (builds, ground truths, timed
+    # serving, exploration, compressed serving, the baselines, refinement,
+    # deletion), each piece counted on its own;
     # measurement reruns and the plain-version comparisons (phase 6) go
     # uncounted
     ops = launch_counters()
@@ -1159,8 +1433,12 @@ def main(argv=None) -> int:
     compare_plain_phase(idx, queries, served, wave_ids, explore_calls)
     compare_quant_phase(idx, queries, served["gt"], quant_served)
     stamp("phase 6, serving part")
+    baselines_phase(base, queries, device, count)
+    stamp("phase 4c")
     refine_phase(idx, queries, served["gt"], device, count)
     stamp("phase 5")
+    delete_phase(idx, queries, device, count)
+    stamp("phase 7")
     log(f"main-path launches: {launches}")
     for name, n in launches.items():
         if n == 0:

@@ -16,7 +16,8 @@ The Alg. 3 extension runs on the device by default
 selection pass of ``core/extend.py`` against the freshly synced graph, one
 vectorized apply, and a host completion of the lanes a conflict left short.
 ``device_extend=False`` runs the numpy extension vertex by vertex.
-:meth:`DEGIndex.refine` runs Alg. 5 through ``core/optimize.py``.  The
+:meth:`DEGIndex.refine` runs Alg. 5 through ``core/optimize.py``;
+:meth:`DEGIndex.remove` deletes vertices through ``core/delete.py``.  The
 randomness is numpy (``default_rng(0)`` entry vertices, the refinement
 seed), so with the same inputs a build or a refinement replays the JAX
 package's.
@@ -376,6 +377,20 @@ class DEGIndex:
         ds = np_pair_dist(self.params.metric, vec, self.vectors[:v])
         order = np.argsort(ds)
         return [(int(i), float(ds[i])) for i in order if int(i) not in exclude]
+
+    # -- deletion (beyond the paper: completes "fully dynamic", Table 1) ------
+    def remove(self, ids, refine_after: int = 0) -> int:
+        """Delete vertices preserving regularity and connectivity (no
+        tombstones); see ``core/delete.py``.  Returns the number deleted.
+        Deletion compacts slots: the last vertex moves into each freed
+        slot, so ids held outside the index must be remapped."""
+        from .delete import delete_vertices
+
+        id_list = [int(v) for v in
+                   (ids if hasattr(ids, "__iter__") else [ids])]
+        self._medoid = None
+        self._stores = {}
+        return delete_vertices(self, id_list, refine_after=refine_after)
 
     # -- continuous refinement (Alg. 5) ---------------------------------------
     def refine(self, iterations: int, seed: Optional[int] = None) -> int:

@@ -232,6 +232,13 @@ class GraphBuilder:
         self.mark_dirty(*bs, *ns, *v_r)
         return ok
 
+    def clear_vertex(self, v: int) -> None:
+        """Reset one row to the empty state (deletion compaction); the row
+        is marked dirty, so the next ``device_graph()`` copies it."""
+        self.adjacency[v] = INVALID
+        self.weights[v] = 0.0
+        self.mark_dirty(v)
+
     def load(self, adjacency: np.ndarray, weights: np.ndarray,
              n: int) -> None:
         """Bulk-load a stored graph."""

@@ -96,3 +96,22 @@ def check_table1(g) -> dict:
             "no_self_loops": check_no_self_loops(b),
             "no_duplicate_edges": check_no_duplicate_edges(b),
             "connected": connected_components(b) == 1}
+
+
+def check_invariants(g) -> tuple[bool, list]:
+    """All Table-1 invariants at once: (ok, failure messages), the JAX
+    package's messages in its order."""
+    b = _as_builder(g)
+    msgs = []
+    if not check_regular(b):
+        msgs.append("not even-regular")
+    if not check_undirected(b):
+        msgs.append("not undirected")
+    if not check_no_self_loops(b):
+        msgs.append("self loops present")
+    if not check_no_duplicate_edges(b):
+        msgs.append("duplicate edges present")
+    comps = connected_components(b)
+    if comps > 1:
+        msgs.append(f"{comps} connected components")
+    return (not msgs), msgs

@@ -54,7 +54,7 @@ def test_extend_blocks():
 
 
 def test_phase2_rows(rehearsal):
-    rows = cs.phase2("cpu")
+    rows = cs.phase2("cpu", n_queries=64)
     assert set(rows) == set(cs.KERNELS)
     for r in rows.values():
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
@@ -65,6 +65,43 @@ def test_phase2_rows(rehearsal):
     # bound the gathers
     assert rows["pq_adc"]["bound_by"] == "bytes"
     assert rows["gather_dist_q"]["bound_by"] == "bytes"
+    # the JSON row of the scan is the ground truth's shape, and at any
+    # real B its 2 B N m flops bound it
+    assert "B=64 N=53387 m=192 k=10" in rows["l2_topk"]["shape"]
+    assert rows["l2_topk"]["bound_by"] == "operations"
+    assert rows["l2_topk"]["tl"] is not None
+
+
+@pytest.mark.parametrize("kw, shape", [
+    (dict(B=cs.BATCH, k=10), "B=256 N=3000 m=192 k=10"),
+    (dict(B=1, k=10), "B=1 N=3000"),
+    (dict(B=300, k=100), "B=300 N=3000 m=192 k=100"),   # beyond phase 2's 256
+    (dict(B=37, k=50, N=1000, m=33), "B=37 N=1000 m=33 k=50"),
+    (dict(B=3, k=50, N=130, m=16), "B=3 N=130 m=16 k=50"),
+])
+def test_phase2_l2_topk_checks(rehearsal, kw, shape):
+    inp = cs.phase2_inputs("cpu", N=3000)
+    r = cs.check_l2_topk(inp, "cpu", **kw)
+    assert shape in r["shape"] and "ids equal 100.0000%" in r["shape"]
+    assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+
+
+def test_ground_truth_is_the_scan(rehearsal):
+    """The ground truth of every recall is the brute-force scan; on the CPU
+    it runs the plain version, so no l2_topk launch is counted."""
+    from repro_torch.core.distances import exact_knn_batched
+
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(500, 16)).astype(np.float32)
+    queries = rng.normal(size=(40, 16)).astype(np.float32)
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    gt = cs.ground_truth(base, queries, "cpu",
+                         lambda fn, *a, **kw: cs.counted(ops, launches, fn,
+                                                         *a, **kw))
+    _, want = exact_knn_batched(queries, base, cs.K, device="cpu")
+    np.testing.assert_array_equal(gt, want)
+    assert launches["l2_topk"] == 0 and "l2_topk" in launches
 
 
 @pytest.mark.parametrize("check, kw, shape", [
@@ -140,6 +177,37 @@ def test_compare_then_refine(served):
     assert idx.refine_stats["vertices"] == 16
     assert not np.array_equal(idx.builder.adjacency, adj0)
     assert refined["classic"]["recall"] >= cs.RECALL_FLOOR
+
+
+def test_baselines_phase(served):
+    idx, queries, _, _ = served
+    base = idx.vectors[: idx.n]
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    out = cs.baselines_phase(
+        base, queries, "cpu",
+        lambda fn, *a, **kw: cs.counted(ops, launches, fn, *a, **kw),
+        n=300, n_nsw=120, n_query=N_QUERIES, batch=BATCH, n_compare=BATCH)
+    assert set(out) == {"kgraph", "random-regular", "nsw"}
+    for name, r in out.items():
+        assert 0.0 <= r["recall"] <= 1.0 and r["build_s"] > 0, name
+        assert r["hops"] > 0 and r["evals"] > 0, name
+    assert out["kgraph"]["recall"] > 0.5
+    assert all(n == 0 for n in launches.values()), launches  # CPU: plain
+
+
+def test_delete_phase(rehearsal):
+    idx, _, queries, _ = cs.build_phase(N, N_QUERIES, "cpu")
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    out = cs.delete_phase(
+        idx, queries, "cpu",
+        lambda fn, *a, **kw: cs.counted(ops, launches, fn, *a, **kw),
+        n_delete=64)
+    assert idx.n == N - 64
+    assert out["classic"]["recall"] >= cs.RECALL_FLOOR
+    assert out["gt"].max() < idx.n
+    assert all(n == 0 for n in launches.values()), launches  # CPU: plain
 
 
 def test_compare_extend(rehearsal):

@@ -1,0 +1,273 @@
+"""Vertex deletion in the port held against the JAX package: the same
+deletions on the same graph leave the same adjacency, weights, vectors and
+``n``, Table-1 holds after each, and the port deletes where the JAX
+package's split planner trips over its own plan (ROADMAP fault C3)."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.baselines import BruteForceIndex as JBruteForce
+from repro.core.build import DEGParams as JDEGParams
+from repro.core.build import build_deg as j_build_deg
+from repro.core.delete import delete_vertex as j_delete_vertex
+from repro.core.invariants import check_invariants as j_check_invariants
+from repro_torch.core.baselines import BruteForceIndex
+from repro_torch.core.build import DEGParams, build_deg
+from repro_torch.core.delete import delete_vertex, delete_vertices
+from repro_torch.core.graph import INVALID
+from repro_torch.core.invariants import check_invariants, check_table1
+from repro_torch.core.metrics import recall_at_k
+from repro_torch.interop import graph_to_numpy, index_from_numpy
+
+KW = dict(degree=8, k_ext=16)
+
+
+def _vecs(seed=0, n=300, dim=12):
+    return np.random.default_rng(seed).normal(size=(n, dim)).astype(
+        np.float32)
+
+
+@pytest.fixture()
+def pair():
+    """``tests/test_core_delete.py``'s fixture, built by both packages."""
+    vecs = _vecs()
+    jidx = j_build_deg(vecs, JDEGParams(**KW), wave_size=8)
+    tidx = build_deg(vecs, DEGParams(**KW), wave_size=8, device="cpu")
+    return jidx, tidx, vecs
+
+
+def _assert_same(jidx, tidx, what=""):
+    assert tidx.n == jidx.n, what
+    jb, tb = jidx.builder, tidx.builder
+    np.testing.assert_array_equal(tb.adjacency, jb.adjacency, err_msg=what)
+    np.testing.assert_allclose(tb.weights, jb.weights, rtol=1e-6,
+                               err_msg=what)
+    np.testing.assert_array_equal(tidx.vectors[: tidx.n],
+                                  jidx.vectors[: jidx.n], err_msg=what)
+    # the device rows follow the host mirror through every compaction
+    np.testing.assert_array_equal(tidx._dev_vectors[: tidx.n].numpy(),
+                                  tidx.vectors[: tidx.n], err_msg=what)
+
+
+def test_build_replays_jax(pair):
+    jidx, tidx, _ = pair
+    _assert_same(jidx, tidx)
+
+
+def test_delete_replays_jax(pair):
+    jidx, tidx, _ = pair
+    rng = np.random.default_rng(1)
+    for step in range(30):
+        v = int(rng.integers(0, tidx.n))
+        assert j_delete_vertex(jidx, v)
+        assert delete_vertex(tidx, v)
+        _assert_same(jidx, tidx, f"step {step}, vertex {v}")
+        ok, msgs = check_invariants(tidx.builder)
+        assert ok, msgs
+    assert tidx.n == 270
+
+
+def test_delete_vertices_replays_jax(pair):
+    jidx, tidx, _ = pair
+    n0 = tidx.n
+    assert jidx.remove(range(0, 50)) == tidx.remove(range(0, 50)) == 50
+    _assert_same(jidx, tidx)
+    assert tidx.n == n0 - 50
+    adj = tidx.builder.adjacency
+    assert (adj[: tidx.n] != INVALID).all()
+    assert (adj[tidx.n:] == INVALID).all()
+    assert delete_vertices(tidx, []) == 0
+
+
+@pytest.mark.parametrize("ids", [7, [299], [3, 3, 3]])
+def test_remove_takes_one_id_or_repeats(pair, ids):
+    jidx, tidx, _ = pair
+    assert tidx.remove(ids) == jidx.remove(ids) == 1
+    _assert_same(jidx, tidx)
+
+
+def test_delete_then_insert_replays_jax(pair):
+    jidx, tidx, _ = pair
+    rng = np.random.default_rng(3)
+    for cycle in range(5):
+        ids = [int(rng.integers(0, tidx.n)) for _ in range(5)]
+        assert tidx.remove(ids) == jidx.remove(ids)
+        pts = rng.normal(size=(5, 12)).astype(np.float32)
+        jidx.add(pts, wave_size=5)
+        tidx.add(pts, wave_size=5)
+        _assert_same(jidx, tidx, f"cycle {cycle}")
+        ok, msgs = check_invariants(tidx.builder)
+        assert ok, msgs
+    base = tidx.vectors[: tidx.n]
+    qs = base[:40] + 0.01 * rng.normal(size=(40, 12)).astype(np.float32)
+    want = jidx.search(qs, k=5, eps=0.2)
+    got = tidx.search(qs, k=5, eps=0.2)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    _, gt = BruteForceIndex(base, device="cpu").search(qs, 5)
+    assert recall_at_k(got.ids.numpy(), gt) > 0.7
+
+
+def test_delete_with_refinement_replays_jax(pair):
+    jidx, tidx, _ = pair
+    stats0 = dict(tidx.refine_stats)
+    for v in (5, 17, 101):
+        assert j_delete_vertex(jidx, v, refine_after=2)
+        assert delete_vertex(tidx, v, refine_after=2)
+        _assert_same(jidx, tidx, f"vertex {v}")
+    ok, msgs = check_invariants(tidx.builder)
+    assert ok, msgs
+    assert tidx.refine_stats["vertices"] == stats0["vertices"] + 6
+
+
+@pytest.mark.parametrize("v", [-1, 300, 10_000])
+def test_delete_out_of_range_raises(pair, v):
+    _, tidx, _ = pair
+    with pytest.raises(ValueError):
+        delete_vertex(tidx, v)
+    with pytest.raises(ValueError):
+        delete_vertex(build_deg(_vecs(n=5), DEGParams(**KW), device="cpu"), 0)
+
+
+def test_delete_below_minimum_raises():
+    """The JAX test's sequence: delete vertex 0 until K_{d+1} plus one
+    vertex is left; both packages stop at the same n."""
+    vecs = np.random.default_rng(4).normal(size=(10, 6)).astype(np.float32)
+    kw = dict(degree=4, k_ext=8)
+    jidx = j_build_deg(vecs, JDEGParams(**kw), wave_size=4)
+    tidx = build_deg(vecs, DEGParams(**kw), wave_size=4, device="cpu")
+    guard = 0
+    while tidx.n > 6 and guard < 32:
+        assert delete_vertex(tidx, 0) == j_delete_vertex(jidx, 0)
+        guard += 1
+    _assert_same(jidx, tidx)
+    assert tidx.n == 6
+    with pytest.raises(RuntimeError):
+        delete_vertex(tidx, 0)
+    with pytest.raises(RuntimeError):
+        j_delete_vertex(jidx, 0)
+
+
+def test_deleted_vector_not_returned(pair):
+    _, tidx, vecs = pair
+    target = vecs[42].copy()
+    assert delete_vertex(tidx, 42)
+    res = tidx.search(target[None], k=1, eps=0.2)
+    found = tidx.vectors[int(res.ids[0, 0])]
+    assert not np.allclose(found, target)
+    assert not (tidx.vectors[: tidx.n] == target).all(axis=1).any()
+
+
+def test_device_graph_after_delete(pair):
+    """The device twin synced before a deletion hands out ``n - 1`` and the
+    cleared last row afterwards (``clear_vertex`` marks it dirty)."""
+    _, tidx, _ = pair
+    g0 = graph_to_numpy(tidx.frozen())
+    assert g0["n"] == 300 and (g0["adjacency"][299] != INVALID).all()
+    tidx._medoid, tidx._stores = 5, {"fp16": object()}
+    assert tidx.remove([299]) == 1            # v == last: nothing moves
+    assert tidx._medoid is None and tidx._stores == {}
+    g1 = graph_to_numpy(tidx.frozen())
+    assert g1["n"] == 299
+    assert (g1["adjacency"][299] == INVALID).all()
+    assert (g1["weights"][299] == 0).all()
+    np.testing.assert_array_equal(g1["adjacency"], tidx.builder.adjacency)
+    assert tidx.remove([0]) == 1              # the last vertex moves to 0
+    g2 = graph_to_numpy(tidx.frozen())
+    assert g2["n"] == 298
+    np.testing.assert_array_equal(g2["adjacency"], tidx.builder.adjacency)
+    np.testing.assert_array_equal(g2["weights"], tidx.builder.weights)
+
+
+def test_check_invariants_messages_match_jax(pair):
+    jidx, tidx, _ = pair
+    assert check_invariants(tidx.builder) == j_check_invariants(
+        jidx.builder) == (True, [])
+    for b in (jidx.builder, tidx.builder):
+        b.adjacency[3, 0] = 3                   # a self loop, one-sided
+    got, want = check_invariants(tidx.builder), j_check_invariants(
+        jidx.builder)
+    assert got == want and not got[0]
+    assert "self loops present" in got[1] and "not undirected" in got[1]
+
+
+# -------------------------------------------------------------- fault C3 --
+# DIM 6, DEGREE 6 (tests/test_lifecycle_stateful.py's shapes): 24 points
+# from default_rng(299), built by the JAX package; deleting 6 vertices
+# drawn from the same generator succeeds there, and the 7th, vertex 12 at
+# n=18, jams the greedy matching; the JAX split planner then picks one
+# (c, e) edge twice and raises KeyError.  Found by scanning seeds 0-399
+# with the JAX package on the CPU (seeds 62, 184 and 357 fail the same
+# way).
+C3_SEED, C3_STEPS, C3_VERTEX, C3_N = 299, 6, 12, 18
+
+
+@pytest.fixture()
+def c3_state():
+    rng = np.random.default_rng(C3_SEED)
+    vecs = rng.normal(size=(24, 6)).astype(np.float32)
+    jidx = j_build_deg(vecs, JDEGParams(degree=6, k_ext=12), wave_size=4)
+    for _ in range(C3_STEPS):
+        assert j_delete_vertex(jidx, int(rng.integers(0, jidx.n)))
+    assert int(rng.integers(0, jidx.n)) == C3_VERTEX and jidx.n == C3_N
+    b = jidx.builder
+    tidx = index_from_numpy(jidx.vectors[: jidx.n], b.adjacency, b.weights,
+                            b.n, dataclasses.asdict(jidx.params),
+                            device="cpu")
+    return jidx, tidx
+
+
+def test_c3_reference_trips_on_its_split_plan(c3_state):
+    jidx, _ = c3_state
+    with pytest.raises(KeyError, match="no edge"):
+        j_delete_vertex(jidx, C3_VERTEX)
+
+
+def test_c3_port_deletes_and_keeps_table1(c3_state):
+    _, tidx = c3_state
+    assert tidx.remove([C3_VERTEX]) == 1
+    assert tidx.n == C3_N - 1
+    assert all(check_table1(tidx.builder).values())
+    ok, msgs = check_invariants(tidx.builder)
+    assert ok, msgs
+
+
+def test_c3_port_deletes_down_to_the_minimum(c3_state):
+    """From the C3 state, keep deleting vertex 0: every deletion the port
+    accepts keeps Table-1, and none raises before K_{d+1} plus one."""
+    _, tidx = c3_state
+    deleted = 0
+    while tidx.n > 8:
+        deleted += delete_vertex(tidx, 0)
+        assert all(check_table1(tidx.builder).values())
+        if deleted == 0:
+            break
+    assert deleted >= 1
+
+
+# ------------------------------------------------------ the whole slice --
+def test_slice_build_delete_ground_truth_search_matches_jax(pair):
+    """Build, delete a tenth of the graph, compute the brute-force ground
+    truth (both backends) and search, in both packages."""
+    jidx, tidx, _ = pair
+    ids = np.random.default_rng(5).choice(300, size=30, replace=False)
+    assert jidx.remove(ids) == tidx.remove(ids) == 30
+    _assert_same(jidx, tidx)
+    base = tidx.vectors[: tidx.n]
+    qs = np.random.default_rng(6).normal(size=(25, 12)).astype(np.float32)
+    for jb, tb in (("jnp", "torch"), ("pallas", "kernel")):
+        wd, wi = JBruteForce(jidx.vectors[: jidx.n]).search(qs, 10,
+                                                            backend=jb)
+        gd, gi = BruteForceIndex(base, device="cpu").search(qs, 10,
+                                                            backend=tb)
+        np.testing.assert_array_equal(gi, np.asarray(wi))
+        np.testing.assert_allclose(gd, np.asarray(wd), rtol=1e-5, atol=1e-5)
+    want = jidx.search(qs, k=10, eps=0.1)
+    got = tidx.search(qs, k=10, eps=0.1)
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_array_equal(got.hops.numpy(), np.asarray(want.hops))
+    torch.testing.assert_close(got.dists, torch.tensor(
+        np.asarray(want.dists)), rtol=1e-5, atol=1e-5)
+    assert recall_at_k(got.ids.numpy(), gi) == recall_at_k(
+        np.asarray(want.ids), np.asarray(wi))
