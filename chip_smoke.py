@@ -4,7 +4,9 @@ hold each against its plain PyTorch version, build an index at the
 paper's audio size, take the exact ground truth from the brute-force scan,
 serve queries and exploration sessions from the index, serve from its
 compressed stores (fp16, sq8, pq), build and serve the paper's baseline
-graphs, refine the index, delete vertices from it, and serve again.
+graphs, refine the index, delete vertices from it, and serve again; then
+serve the recsys models DIN and DCN-v2 at their published widths, their
+embedding bags through the bag_lookup kernel.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -62,11 +64,27 @@ Phases (any failure raises and exits non-zero):
      refinement, Table-1, the ground truth recomputed over the remaining
      rows, "classic" served again (recall@10 >= 0.90, no deleted vector
      returned);
-  8. the kernels' JSON line, then the final JSON line.
+  8. (run right after phase 2, so that a fault shows early, and while
+     the profiler is fresh: late in one run it saw no device activity)
+     recsys serving at full width, weights from init_params (a
+     torch.Generator seeded 0) and batches from CriteoLikeStream(seed=0):
+     first bag_lookup against its plain version and F.embedding_bag at
+     the path's shapes (DIN's interest at serve_p99 and serve_bulk,
+     DCN-v2's user_embedding at B=1 and 512, a ragged case); then DIN:
+     RECSYS_BATCHES serve_p99 batches of 512 (ms a batch, the idle share
+     of one), one serve_bulk forward of 262,144 (s, samples/s, peak
+     memory), retrieval (k=100) over the 63,001 item rows at B=1 and 512;
+     DCN-v2 (its 33,762,577-row table, 2.16 GB): table init s and bytes,
+     RECSYS_BATCHES serve_p99 batches, retrieval_cand (B=1 over 1,000,000
+     rows of field 2); every logit finite; the DIN batches and the three
+     retrievals again through the plain versions (logits rtol 1e-5 atol
+     1e-6; ids equal on RETRIEVAL_AGREE of the slots, the rest ties);
+  9. the kernels' JSON line, then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
-exploration sessions, the refinement and the deletion only;
+exploration sessions, the refinement, the deletion and the recsys
+serving only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.
 
@@ -115,6 +133,7 @@ AGREE_FLOOR = 0.99
 RECALL_GAP = 0.005
 GT_AGREE = 0.999                   # kernel vs exact_knn_batched id slots
 GT_RTOL = 1e-5                     # a differing slot must be a tie
+RETRIEVAL_AGREE = 0.99             # recsys retrieval ids, kernel vs plain
 # phase 4c: the baselines of benchmarks/qps_recall.py at degree 20
 N_BASELINE_QUERIES = 1_000
 KNNG_K, KNNG_ITERS = 20, 6
@@ -124,6 +143,13 @@ NSW_F, NSW_MAX_DEGREE, NSW_K_SEARCH, NSW_EPS = 10, 60, 40, 0.2
 # which left the run 32 s inside 900 s
 N_NSW = 500
 N_DELETE = 512                     # phase 7
+# phase 8: recsys serving; the batch sizes and the candidate count are the
+# serve_p99, serve_bulk and retrieval_cand cells of RECSYS_SHAPES
+RECSYS_ARCHS = ("din", "dcn-v2")
+RECSYS_BATCHES = 20                # serve_p99 batches per model
+RETRIEVAL_K = 100
+DCN_CANDIDATE_FIELD = 2            # Criteo-Kaggle field 2: 10.1M rows
+BAG_RTOL, BAG_ATOL = 1e-5, 1e-6    # kernel vs plain: bag sums and logits
 
 KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
@@ -133,6 +159,7 @@ KERNELS = {
     "gather_dist_q": "src/repro/kernels/gather_dist_q/gather_dist_q.py:37",
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
     "l2_topk": "src/repro/kernels/l2_topk/l2_topk.py:93",
+    "bag_lookup": "src/repro/kernels/bag_lookup/bag_lookup.py:38",
 }
 # phase 4b: the compressed stores served under the "classic" preset
 QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
@@ -176,7 +203,8 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
     also holds the launch overhead.  With ``symbol`` the device time is
     that of the ``__global__`` function of that name alone; without, it
     is the sum of every kernel, copy and fill ``fn`` ran.  ``device_ms``
-    is None if the profiler saw no device activity at all."""
+    is None if the profiler saw no device activity at all (the JSON line
+    then carries the event time, see ``kernel_ms``)."""
     import torch
 
     fn()
@@ -191,11 +219,16 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
         e.synchronize()
         ev.append(s.elapsed_time(e))
     # the profiler has dropped some of 50 back-to-back launches of a few
-    # microseconds (36 of 50 seen on one H100 run): profile again, up to
-    # PROFILE_TRIES times, until it sees every launch
+    # microseconds (36 of 50 seen on one H100 run; 47-49 of 50, three
+    # times in a row, on another), and late in one run it saw no device
+    # activity at all: profile again, up to PROFILE_TRIES times, until it
+    # sees every launch; after that, the device time of a launch is the
+    # mean over the launches it saw (never their sum over ``reps``), and
+    # with none seen it is not measured (None)
+    seen = reps
     for _ in range(PROFILE_TRIES):
         rows = device_profile(fn, reps)
-        if symbol is None or not rows:
+        if symbol is None:
             break
         rows = [r for r in rows if symbol in r[0]]
         seen = sum(r[2] for r in rows)
@@ -204,9 +237,9 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
         log(f"  the profiler saw {symbol} launched {seen} times in {reps} "
             "calls; profiling again")
     else:
-        raise AssertionError(f"the profiler saw {symbol} launched {seen} "
-                             f"times in {reps} calls, {PROFILE_TRIES} times")
-    dev_ms = sum(r[1] for r in rows) / reps if rows else None
+        log(f"  {symbol}: " + (f"the mean over the {seen} launches seen"
+                               if seen else "device time not measured"))
+    dev_ms = sum(r[1] for r in rows) / seen if rows else None
     return {"device_ms": dev_ms, "event_ms": float(np.median(ev))}
 
 
@@ -215,7 +248,14 @@ def idle_share(fn, wall_ms: float, what: str) -> None:
     unprofiled wall time, and the kernels that took the most of it.
     Host operations are not recorded: on a refine chunk's hundred
     thousand launches that costs minutes."""
-    rows = device_profile(fn, host=False)
+    for _ in range(PROFILE_TRIES):
+        rows = device_profile(fn, host=False)
+        if rows:
+            break
+    else:
+        log(f"  {what}: idle share not measured (the profiler saw no device "
+            f"activity, {PROFILE_TRIES} times)")
+        return
     dev_ms = sum(r[1] for r in rows)
     log(f"  {what}: device busy {dev_ms:.3f} ms of {wall_ms:.3f} ms wall, "
         f"idle share {1 - dev_ms / wall_ms:.4f}; top: " + "; ".join(
@@ -679,6 +719,7 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
 def launch_counters() -> dict:
     """Every kernel's launch counter as name -> (ops module, attribute);
     fp16 rows' launches of gather_dist are also counted apart."""
+    from repro_torch.kernels.bag_lookup import ops as bag_ops
     from repro_torch.kernels.beam_merge import ops as bm_ops
     from repro_torch.kernels.fused_hop import ops as fh_ops
     from repro_torch.kernels.gather_dist import ops as gd_ops
@@ -694,7 +735,8 @@ def launch_counters() -> dict:
             "mrng_occlusion": (mo_ops, "launches"),
             "gather_dist_q": (gdq_ops, "launches"),
             "pq_adc": (adc_ops, "launches"),
-            "l2_topk": (l2_ops, "launches")}
+            "l2_topk": (l2_ops, "launches"),
+            "bag_lookup": (bag_ops, "launches")}
 
 
 def counted(ops: dict, total: dict, fn, *args, **kwargs):
@@ -808,6 +850,7 @@ def wave_phase(idx, queries) -> np.ndarray:
 def plain_kernels():
     """Route every kernel wrapper to its plain version for the duration
     (a CUDA tensor then never reaches a kernel)."""
+    from repro_torch.kernels.bag_lookup import ops as bag
     from repro_torch.kernels.beam_merge import ops as bm
     from repro_torch.kernels.fused_hop import ops as fh
     from repro_torch.kernels.gather_dist import ops as gd
@@ -819,7 +862,7 @@ def plain_kernels():
     saved = [(m, name, getattr(m, name)) for m, name in
              ((bm, "beam_merge"), (fh, "fused_hop"), (gd, "gather_dist"),
               (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
-              (adc, "pq_adc"), (l2, "l2_topk"))]
+              (adc, "pq_adc"), (l2, "l2_topk"), (bag, "bag_lookup"))]
     try:
         for m, name, fn in saved:
             setattr(m, name, functools.partial(fn, impl="ref"))
@@ -1374,6 +1417,294 @@ def compare_plain_phase(idx, queries, served, wave_ids, explore_calls, *,
            np.concatenate(got), np.concatenate([c[2] for c in explore_calls]))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: recsys serving (DIN and DCN-v2) and the bag_lookup kernel
+# ---------------------------------------------------------------------------
+def peak_memory(reset: bool = False) -> int | None:
+    """The card's peak allocated bytes since the last reset (``reset``
+    starts a new window and returns None)."""
+    import torch
+
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+        return None
+    return torch.cuda.max_memory_allocated()
+
+
+def recsys_setup(device, *, reduced=False, p99=None, bulk=None,
+                 n_candidates=None, n_batches=RECSYS_BATCHES) -> dict:
+    """Per model of RECSYS_ARCHS: its config (the published one, or
+    ``reduced()``), host batches from CriteoLikeStream(seed=0) on the
+    card, and a RecsysModel from init_params with a torch.Generator seeded
+    0, its init seconds and bytes.  Batch sizes and the candidate count
+    default to the RECSYS_SHAPES cells."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import CriteoLikeStream
+    from repro_torch.models import recsys as R
+
+    out = {}
+    for name in RECSYS_ARCHS:
+        spec = get_arch(name)
+        cfg = spec.reduced() if reduced else spec.model
+        b99 = p99 or spec.cell("serve_p99")["batch"]
+        stream = CriteoLikeStream(cfg, seed=0)
+        t0 = time.perf_counter()
+        batches = [R.as_tensors(stream.batch(s, b99), device)
+                   for s in range(n_batches)]
+        rec = {"cfg": cfg, "p99": batches,
+               "query": R.as_tensors(stream.batch(
+                   n_batches, spec.cell("retrieval_cand")["batch"]), device),
+               "n_candidates": (n_candidates
+                                or spec.cell("retrieval_cand")["n_candidates"])}
+        if name == "din":
+            rec["bulk"] = R.as_tensors(stream.batch(
+                n_batches + 1, bulk or spec.cell("serve_bulk")["batch"]),
+                device)
+        data_s = time.perf_counter() - t0
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        rec["model"] = R.init_params(cfg, gen, device)
+        sync()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["bytes"] = sum(p.numel() * p.element_size()
+                           for p in rec["model"].parameters())
+        log(f"phase8 {name}: {cfg.total_rows:,} table rows x {cfg.embed_dim}, "
+            f"parameters {rec['bytes']:,} bytes initialised in "
+            f"{rec['init_s']:.3f} s; {n_batches} batches of {b99} and the "
+            f"queries made in {data_s:.2f} s")
+        out[name] = rec
+    return out
+
+
+def check_bag_lookup(table, ids, weights, shape: str) -> dict:
+    """The kernel against its plain version and F.embedding_bag (mode
+    "sum" over the clipped ids and masked weights, timed as the library
+    call) on one main-path input.  The bound counts ids, weights, each
+    distinct row a valid id names and the output once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.bag_lookup import ops
+
+    V, E = table.shape
+    B, nf = ids.shape
+    got = ops.bag_lookup(table, ids, weights)
+    want = ops.bag_lookup(table, ids, weights, impl="ref")
+    torch.testing.assert_close(got, want, rtol=BAG_RTOL, atol=BAG_ATOL)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    valid = ids >= 0
+    safe = ids.clamp(0, V - 1)
+    w = torch.ones_like(ids, dtype=torch.float32) if weights is None \
+        else weights
+    w = None if weights is None and bool(valid.all()) else \
+        torch.where(valid, w, 0.0)
+    lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=w)
+    torch.testing.assert_close(lib, want, rtol=BAG_RTOL, atol=BAG_ATOL)
+    t = time_call(lambda: ops.bag_lookup(table, ids, weights),
+                  "bag_lookup_kernel")
+    tp = time_call(lambda: ops.bag_lookup(table, ids, weights, impl="ref"))
+    tl = time_call(lambda: F.embedding_bag(safe, table, mode="sum",
+                                           per_sample_weights=w))
+    rows = torch.unique(safe[valid]).numel()
+    n_valid = int(valid.sum())
+    nb = (ids.numel() * 4 + (0 if weights is None else weights.numel() * 4)
+          + rows * E * 4 + B * E * 4)
+    bms, by = bound_ms(nb, 2 * n_valid * E)
+    return dict(name="bag_lookup", max_abs_err=err, t=t, tp=tp, tl=tl,
+                bound_ms=bms, bound_by=by,
+                shape=f"{shape}: B={B} F={nf} E={E} V={V}, {n_valid} valid "
+                      f"ids, {rows} rows",
+                tol=f"rtol {BAG_RTOL:g} atol {BAG_ATOL:g}")
+
+
+def bag_checks(rec: dict, device, seed=0) -> list:
+    """bag_lookup at the shapes phase 8's main path gives it: DIN's
+    interest pooling at serve_p99 and serve_bulk (history ids with their
+    -1 tails, weights in [0, 1)), DCN-v2's user_embedding at
+    retrieval_cand and serve_p99 (no weights, over its whole table), and
+    a ragged case (B=37, F=5, E=7, ids < 0 and >= V)."""
+    import torch
+    from repro_torch.models import recsys as R
+
+    rng = np.random.default_rng(seed)
+    din, dcn = rec["din"], rec["dcn-v2"]
+
+    def weights_for(ids):
+        return torch.tensor(rng.random(tuple(ids.shape), dtype=np.float32),
+                            device=device)
+
+    rows = []
+    for what, b in (("DIN interest serve_p99", din["p99"][0]),
+                    ("DIN interest serve_bulk", din["bulk"])):
+        ids = R.history_ids(din["cfg"], b["hist"])
+        rows.append(check_bag_lookup(din["model"].table, ids,
+                                     weights_for(ids), what))
+    for what, b in (("DCN-v2 user_embedding retrieval_cand", dcn["query"]),
+                    ("DCN-v2 user_embedding serve_p99", dcn["p99"][0])):
+        ids = R.global_ids(dcn["cfg"], b["sparse"]).to(torch.int32)
+        rows.append(check_bag_lookup(dcn["model"].table, ids, None, what))
+    V = 1000
+    table = torch.tensor(rng.normal(size=(V, 7)).astype(np.float32),
+                         device=device)
+    ids = rng.integers(0, V, size=(37, 5)).astype(np.int32)
+    ids[rng.random((37, 5)) < 0.2] = INVALID
+    ids[0, :3] = [V, V + 11, INVALID]
+    ids = torch.tensor(ids, device=device)
+    rows.append(check_bag_lookup(table, ids, weights_for(ids), "ragged"))
+    def ms(t):
+        dev = ("not measured" if t["device_ms"] is None
+               else f"{t['device_ms']:.6f} ms")
+        return f"device {dev} ({t['event_ms']:.6f} ms per call)"
+
+    for r in rows:
+        log(f"phase8 bag_lookup [{r['shape']}] ok ({r['tol']}): kernel "
+            f"{ms(r['t'])}, plain {ms(r['tp'])}, F.embedding_bag "
+            f"{ms(r['tl'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"max_abs_err {r['max_abs_err']:.3g}")
+    return rows
+
+
+def _timed(fn, *args):
+    """(result, wall ms) of one call ended by a synchronise."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _ms_summary(ms: list) -> str:
+    return (f"median {float(np.median(ms)):.3f} ms, mean "
+            f"{float(np.mean(ms)):.3f} ms, max {max(ms):.3f} ms")
+
+
+def _check_finite(what: str, x) -> None:
+    import torch
+
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{what}: non-finite values")
+
+
+def _check_retrieval(what: str, got, want, u, cands) -> float:
+    """Kernel vs plain retrieval: scores at BAG_RTOL/BAG_ATOL, ids equal
+    on RETRIEVAL_AGREE of the slots, and every id's own score (the plain
+    user vector against its candidate row) equal to the plain score of its
+    slot, so a differing id is a tie."""
+    import torch
+
+    (top, ids), (top_p, ids_p) = got, want
+    torch.testing.assert_close(top, top_p, rtol=BAG_RTOL, atol=BAG_ATOL)
+    own = (u[:, None, :] * cands[ids.long()]).sum(-1)
+    torch.testing.assert_close(own, top_p, rtol=BAG_RTOL, atol=BAG_ATOL)
+    same = float((ids == ids_p).float().mean())
+    log(f"phase8 plain vs kernels {what}: ids equal on {same:.4%} of "
+        f"{ids.numel()} slots, the rest ties by score")
+    if same < RETRIEVAL_AGREE:
+        raise AssertionError(f"{what}: ids equal on only {same:.4f}")
+    return same
+
+
+def recsys_phase(rec: dict, device, count=None) -> dict:
+    """DIN and DCN-v2 served at the widths ``rec`` holds: each model's
+    serve_p99 batches (ms a batch; DIN's idle share of one), DIN's
+    serve_bulk forward (s, samples/s, peak bytes), DIN's retrieval at B=1
+    and at serve_p99 over its item field, and DCN-v2's retrieval_cand
+    over ``n_candidates`` rows of DCN_CANDIDATE_FIELD (k = RETRIEVAL_K, or
+    every candidate where there are fewer); every logit finite.
+    Then the DIN batches and the three retrievals again through the plain
+    versions.  Returns the numbers and the bag_lookup launches of each
+    piece."""
+    import torch
+    from repro_torch.kernels.bag_lookup import ops as bag_ops
+    from repro_torch.models import recsys as R
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name in RECSYS_ARCHS:
+        r = rec[name]
+        model = r["model"]
+        batches = r["p99"]
+        R.forward(model, batches[0])                          # warm-up
+        sync()
+        logits, ms = [], []
+        for b in batches:
+            bag_ops.launches = 0
+            y, t = _timed(count, R.forward, model, b)
+            # DIN pools its history through the kernel; DCN-v2 does not
+            expect_launches("bag_lookup", bag_ops.launches,
+                            int(name == "din"), f"{name} forward")
+            logits.append(y)
+            ms.append(t)
+            _check_finite(f"{name} serve_p99 logits", y)
+        B = batches[0]["sparse"].shape[0]
+        log(f"phase8 {name} serve_p99: {len(batches)} batches of {B}, "
+            f"{_ms_summary(ms)} a batch, {B * len(batches) / sum(ms) * 1e3:,.1f}"
+            " samples/s")
+        res = {"p99_ms": ms, "logits": logits}
+        if name == "din":
+            idle_share(lambda: R.forward(model, batches[0]),
+                       float(np.median(ms)), "one DIN serve_p99 batch")
+            bulk = r["bulk"]
+            R.forward(model, bulk)                            # warm-up
+            sync()
+            peak_memory(reset=True)
+            bag_ops.launches = 0
+            y, t = _timed(count, R.forward, model, bulk)
+            peak = peak_memory()
+            expect_launches("bag_lookup", bag_ops.launches, 1,
+                            "din serve_bulk forward")
+            _check_finite("din serve_bulk logits", y)
+            nb = bulk["sparse"].shape[0]
+            log(f"phase8 din serve_bulk: one forward of {nb:,} in "
+                f"{t / 1e3:.4f} s = {nb / t * 1e3:,.1f} samples/s, peak "
+                f"memory {peak if peak is None else f'{peak:,}'} bytes")
+            res.update(bulk_s=t / 1e3, bulk_samples_s=nb / t * 1e3,
+                       bulk_peak_bytes=peak)
+            cands = R.item_vectors(model, model.cfg.item_field)
+            queries = {1: {key: v[:1] for key, v in batches[0].items()},
+                       B: batches[0]}
+        else:
+            cands = R.item_vectors(model, DCN_CANDIDATE_FIELD,
+                                   r["n_candidates"])
+            queries = {1: r["query"]}
+        kk = min(RETRIEVAL_K, cands.shape[0])
+        res["retrieval"] = {}
+        for nq, q in queries.items():
+            R.serve_retrieval(model, q, cands, kk)            # warm-up
+            sync()
+            bag_ops.launches = 0
+            got, t = _timed(count, R.serve_retrieval, model, q, cands, kk)
+            expect_launches("bag_lookup", bag_ops.launches, 1,
+                            f"{name} user_embedding")
+            _check_finite(f"{name} retrieval scores", got[0])
+            log(f"phase8 {name} retrieval: B={nq}, k={kk} over "
+                f"{cands.shape[0]:,} candidates in {t:.3f} ms")
+            res["retrieval"][nq] = {"ms": t, "got": got, "q": q,
+                                    "cands": cands}
+        out[name] = res
+
+    # the plain versions on the same inputs
+    din = rec["din"]["model"]
+    with plain_kernels():
+        for i, b in enumerate(rec["din"]["p99"]):
+            want = R.forward(din, b)
+            torch.testing.assert_close(out["din"]["logits"][i], want,
+                                       rtol=BAG_RTOL, atol=BAG_ATOL)
+        log(f"phase8 plain vs kernels: {len(rec['din']['p99'])} DIN "
+            f"serve_p99 batches' logits agree (rtol {BAG_RTOL:g}, atol "
+            f"{BAG_ATOL:g})")
+        for name in RECSYS_ARCHS:
+            model = rec[name]["model"]
+            for nq, res in out[name]["retrieval"].items():
+                q, cands = res["q"], res["cands"]
+                want = R.serve_retrieval(model, q, cands,
+                                         res["got"][0].shape[1])
+                res["agree"] = _check_retrieval(
+                    f"{name} retrieval B={nq}", res["got"], want,
+                    R.user_embedding(model, q), cands)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=N_AUDIO,
@@ -1419,6 +1750,12 @@ def main(argv=None) -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
 
     stamp("phases 1-2")
+    rec = recsys_setup(device)
+    checks["bag_lookup"] = bag_checks(rec, device)[0]
+    recsys_phase(rec, device, count)
+    del rec
+    torch.cuda.empty_cache()
+    stamp("phase 8")
     idx, base, queries, _ = build_phase(args.n, args.queries, device, count)
     wave_ids = wave_phase(idx, queries)
     build_phase(N_HOST, 16, device, count, device_extend=False,

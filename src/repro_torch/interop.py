@@ -4,7 +4,9 @@
 ``DEGIndex``'s state (adjacency, weights, n, vectors, params) into the
 port's, so both packages search the same graph; :func:`store_from_numpy`
 does the same for a compressed store's codes, so both search the same
-codes whatever their encoders do.  The ``*_to_numpy``
+codes whatever their encoders do; :func:`recsys_model_from_numpy` turns a
+recsys parameter dict into a ``RecsysModel`` with the same weights.  The
+``*_to_numpy``
 functions bring the port's tensors back, so tests compare with
 ``np.testing`` and never tensor against array.  Nothing here imports JAX.
 """
@@ -20,6 +22,7 @@ from repro_torch.core.beam import BeamState
 from repro_torch.core.build import DEGIndex, DEGParams
 from repro_torch.core.graph import DEGraph, GraphBuilder
 from repro_torch.core.search import SearchResult
+from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.quant.store import VectorStore
 
 # the JAX package's hop_backend values -> the port's
@@ -73,6 +76,20 @@ def store_from_numpy(data, scale, codec: str, codebooks=None,
         scale=t(np.asarray(scale, np.float32)) if codec == "sq8" else None,
         codebooks=(None if codebooks is None
                    else t(np.asarray(codebooks, np.float32))))
+
+
+def recsys_model_from_numpy(params: dict, cfg: RecsysConfig,
+                            device="cuda") -> RecsysModel:
+    """A ``RecsysModel`` holding the JAX package's recsys parameters
+    (``init_params``' nested dict, leaves as numpy arrays) as float32
+    tensors on ``device``."""
+    def t(v):
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    return RecsysModel(cfg, {
+        name: ({k: t(x) for k, x in v.items()} if isinstance(v, dict)
+               else t(v))
+        for name, v in params.items()})
 
 
 def store_to_numpy(store: VectorStore) -> dict:

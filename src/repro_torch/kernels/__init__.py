@@ -1,0 +1,11 @@
+"""Hand-written CUDA C++ kernels for Hopper (``sm_90a``), one package per
+TPU kernel of ``src/repro/kernels/``: ``<name>/ops.py`` dispatches (a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version) and
+counts launches, ``<name>/ref.py`` is the plain PyTorch version, and
+``csrc/<name>.cu`` the kernel, built by ``_build.py`` at first use.
+
+Kernels: ``fused_hop``, ``beam_merge`` and ``gather_dist`` (the search
+hop), ``mrng_occlusion`` (extension and refinement), ``gather_dist_q`` and
+``pq_adc`` (the compressed stores), ``l2_topk`` (the brute-force scan) and
+``bag_lookup`` (the recsys embedding bag).  Nothing is built at import.
+"""

@@ -1,0 +1,85 @@
+"""EmbeddingBag over one stacked table, the port of
+``src/repro/models/embedding_bag.py``.
+
+* :func:`embedding_bag_fixed` — fixed fields (B, F): a weighted gather-sum,
+  the DLRM/DCN layout and DIN's pooling over its history.  The sum is the
+  ``bag_lookup`` kernel (``kernels/bag_lookup``); the mean divides outside
+  it.
+* :func:`embedding_bag_ragged` / :func:`embedding_bag_max` — ragged bags
+  flattened to (N,) with ``segment_ids``: a gather, then ``index_add_`` /
+  ``scatter_reduce`` (the JAX package's ``take`` + ``segment_sum`` /
+  ``segment_max``).  A segment id outside [0, num_bags) raises here where
+  ``jax.ops.segment_sum`` drops it.
+
+``sharded_embedding_lookup`` (the row-sharded lookup) waits for the
+sharding slice.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.bag_lookup import ops as bag_ops
+
+
+def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        combiner: str = "sum") -> torch.Tensor:
+    """table (V, E), ids (B, F) int32 -> (B, E) in the table's type.
+    INVALID (< 0) ids contribute 0; ids >= V are clipped to V - 1; the sum
+    is taken in float32."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(combiner)
+    out = bag_ops.bag_lookup(table, ids, weights)
+    if combiner == "mean":
+        w = (ids >= 0).to(torch.float32)
+        if weights is not None:
+            w = w * weights.to(torch.float32)
+        out = out / torch.clamp_min(w.sum(dim=1, keepdim=True), 1.0)
+    return out.to(table.dtype)
+
+
+def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor,
+                         segment_ids: torch.Tensor, num_bags: int,
+                         weights: Optional[torch.Tensor] = None,
+                         combiner: str = "sum") -> torch.Tensor:
+    """Ragged bags: flat_ids (N,), segment_ids (N,) -> (num_bags, E)."""
+    rows = table[flat_ids.to(torch.int64)]                      # (N, E)
+    if weights is not None:
+        rows = rows * weights[:, None].to(rows.dtype)
+    seg = segment_ids.to(torch.int64)
+    out = torch.zeros((num_bags, table.shape[1]), dtype=rows.dtype,
+                      device=table.device).index_add_(0, seg, rows)
+    if combiner == "mean":
+        cnt = torch.zeros(num_bags, dtype=rows.dtype,
+                          device=table.device).index_add_(
+            0, seg, torch.ones_like(seg, dtype=rows.dtype))
+        out = out / torch.clamp_min(cnt[:, None], 1.0)
+    return out
+
+
+def embedding_bag_max(table: torch.Tensor, flat_ids: torch.Tensor,
+                      segment_ids: torch.Tensor,
+                      num_bags: int) -> torch.Tensor:
+    """Elementwise max over each ragged bag; an empty bag is -inf, the
+    identity of ``jax.ops.segment_max``."""
+    rows = table[flat_ids.to(torch.int64)]
+    seg = segment_ids.to(torch.int64)[:, None].expand_as(rows)
+    out = torch.full((num_bags, table.shape[1]), -torch.inf,
+                     dtype=rows.dtype, device=table.device)
+    return out.scatter_reduce_(0, seg, rows, reduce="amax",
+                               include_self=True)
+
+
+def stack_vocab_offsets(vocab_sizes: Sequence[int]
+                        ) -> tuple[int, torch.Tensor]:
+    """Stack per-field tables into one big table: returns (V_total,
+    offsets (F,) int32)."""
+    off = np.zeros(len(vocab_sizes), dtype=np.int32)
+    total = 0
+    for i, v in enumerate(vocab_sizes):
+        off[i] = total
+        total += int(v)
+    return total, torch.from_numpy(off)

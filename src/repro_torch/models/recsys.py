@@ -1,0 +1,302 @@
+"""RecSys architectures for serving: DLRM (MLPerf), DCN-v2, DeepFM, DIN,
+ported from ``src/repro/models/recsys.py``.
+
+Common skeleton: huge sparse embedding tables (stacked per-field into ONE
+(V_total, E) table with static row offsets) -> a feature-interaction op
+(dot / cross / FM / target-attention) -> a small MLP tower -> 1 logit.
+
+The model is a :class:`RecsysModel` whose parameter names are the JAX
+parameter dict's leaves (``table``, ``top_mlp.w0``, ``cross_w``, ...); the
+module-level functions keep the JAX names and take the model in place of
+``(params, cfg)``.  The forward follows the JAX forward op for op, except
+that DIN's attention-pooled interest and ``user_embedding``'s pooled means
+go through :func:`embedding_bag_fixed`, whose sum is the ``bag_lookup``
+kernel on a card.  The port serves only: every entry point runs under
+``torch.inference_mode()``, and the parameters take no gradient (training
+waits for its slice).  Matrix products run in full float32: TF32 must stay
+off (``torch.backends.cuda.matmul.allow_tf32``, False by default).
+
+Ids outside a field's vocabulary are an error, as torch indexing makes
+them (an ``IndexError`` on the CPU, a device assert on a card), where
+``jnp.take`` returns NaN rows.  Invalid history ids (< 0) are masked, as
+in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.embedding_bag import (embedding_bag_fixed,
+                                              stack_vocab_offsets)
+from repro_torch.models.layers import apply_mlp_tower, dense_init, mlp_tower
+
+INVALID = -1
+
+# Criteo-Kaggle categorical cardinalities (widely published)
+CRITEO_KAGGLE_VOCABS = (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572)
+# Criteo-Terabyte cardinalities used by MLPerf DLRM (day 0-23 counts)
+CRITEO_TB_VOCABS = (
+    45833188, 36746, 17245, 7413, 20243, 3, 7114, 1441, 62, 29275261,
+    1572176, 345138, 10, 2209, 11267, 128, 4, 974, 14, 48937457, 11316796,
+    40094537, 452104, 12606, 104, 35)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    kind: str                       # 'dlrm' | 'dcn-v2' | 'deepfm' | 'din'
+    n_dense: int
+    n_sparse: int
+    embed_dim: int
+    vocab_sizes: tuple
+    mlp: tuple                      # top tower hidden sizes
+    bot_mlp: tuple = ()             # dlrm bottom tower
+    n_cross: int = 0                # dcn-v2
+    attn_mlp: tuple = ()            # din
+    seq_len: int = 0                # din history length
+    item_field: int = 0             # din: which field is the target item
+    dtype: torch.dtype = torch.float32
+    # stacked-table row padding: round total_rows up to a multiple.
+    # Padded rows are never addressed by real ids.
+    table_pad_to: int = 1
+
+    def __post_init__(self):
+        if len(self.vocab_sizes) != self.n_sparse:
+            raise ValueError(f"{len(self.vocab_sizes)} vocabularies for "
+                             f"{self.n_sparse} sparse fields")
+
+    @property
+    def total_rows(self) -> int:
+        n = int(sum(self.vocab_sizes))
+        p = max(self.table_pad_to, 1)
+        return -(-n // p) * p
+
+    @property
+    def x0_dim(self) -> int:
+        """Input width of the interaction stage."""
+        if self.kind == "dlrm":
+            return self.embed_dim          # bottom-mlp output
+        if self.kind == "dcn-v2":
+            return self.n_dense + self.n_sparse * self.embed_dim
+        if self.kind == "deepfm":
+            return self.n_sparse * self.embed_dim
+        if self.kind == "din":
+            # target item + attention-pooled history + profile fields
+            return (self.n_sparse + 1) * self.embed_dim
+        raise ValueError(self.kind)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class RecsysModel(nn.Module):
+    """The parameters of one recsys model under the JAX dict's names:
+    tensors as parameters, towers as ``nn.ParameterDict``s."""
+
+    def __init__(self, cfg: RecsysConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        for name, value in params.items():
+            if isinstance(value, dict):
+                value = nn.ParameterDict({k: _frozen(v)
+                                          for k, v in value.items()})
+            else:
+                value = _frozen(value)
+            setattr(self, name, value)
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        return forward(self, batch)
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+def init_params(cfg: RecsysConfig, generator: torch.Generator,
+                device="cuda") -> RecsysModel:
+    """Random parameters drawn from ``generator`` (on ``device``), in the
+    JAX package's shapes and scales: the table at 0.01 times a truncated
+    normal, towers at ``1/sqrt(fan_in)``, zero biases."""
+    E = cfg.embed_dim
+    g, dev = generator, device
+    p: dict = {"table": dense_init(g, (cfg.total_rows, E), scale=0.01,
+                                   device=dev)}
+    if cfg.kind == "dlrm":
+        p["bot_mlp"] = mlp_tower(g, [cfg.n_dense, *cfg.bot_mlp], device=dev)
+        n_int = cfg.n_sparse + 1
+        top_in = E + n_int * (n_int - 1) // 2
+        p["top_mlp"] = mlp_tower(g, [top_in, *cfg.mlp], device=dev)
+    elif cfg.kind == "dcn-v2":
+        d = cfg.x0_dim
+        p["cross_w"] = dense_init(g, (cfg.n_cross, d, d), scale=0.01,
+                                  device=dev)
+        p["cross_b"] = torch.zeros((cfg.n_cross, d), device=dev)
+        p["top_mlp"] = mlp_tower(g, [d, *cfg.mlp, 1], device=dev)
+    elif cfg.kind == "deepfm":
+        p["fm_w"] = dense_init(g, (cfg.total_rows,), scale=0.01, device=dev)
+        p["fm_b"] = torch.zeros((), device=dev)
+        p["top_mlp"] = mlp_tower(g, [cfg.x0_dim, *cfg.mlp, 1], device=dev)
+    elif cfg.kind == "din":
+        p["attn_mlp"] = mlp_tower(g, [4 * E, *cfg.attn_mlp, 1], device=dev)
+        p["top_mlp"] = mlp_tower(g, [cfg.x0_dim, *cfg.mlp, 1], device=dev)
+    else:
+        raise ValueError(cfg.kind)
+    return RecsysModel(cfg, p)
+
+
+def as_tensors(batch: dict, device="cuda") -> dict:
+    """A batch of numpy arrays (``data/recsys.py``) as tensors on
+    ``device``, dtypes kept."""
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+# --------------------------------------------------------------------------
+# lookup plumbing
+# --------------------------------------------------------------------------
+def default_lookup(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
+    """Plain gather: flat_ids (...,) global row ids -> (..., E)."""
+    return table[flat_ids.to(torch.int64)]
+
+
+def global_ids(cfg: RecsysConfig, sparse: torch.Tensor) -> torch.Tensor:
+    """Per-field ids (B, F) -> global stacked-table rows (B, F)."""
+    _, offsets = stack_vocab_offsets(cfg.vocab_sizes)
+    return sparse + offsets.to(sparse.device)[None, :]
+
+
+def history_ids(cfg: RecsysConfig, hist: torch.Tensor) -> torch.Tensor:
+    """DIN's history (B, S) of item-field ids, -1 padded -> global rows,
+    with every padded slot left at -1 (``hist + offset`` would turn it into
+    a row of the field before the item field)."""
+    _, offsets = stack_vocab_offsets(cfg.vocab_sizes)
+    off = int(offsets[cfg.item_field])
+    return torch.where(hist >= 0, hist + off, INVALID).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# forwards
+# --------------------------------------------------------------------------
+def _dlrm_interact(emb: torch.Tensor, bot: torch.Tensor) -> torch.Tensor:
+    """emb (B, F, E), bot (B, E) -> (B, E + F+1 choose 2) dot interactions."""
+    z = torch.cat([bot[:, None, :], emb], dim=1)              # (B, F+1, E)
+    zz = torch.bmm(z, z.transpose(1, 2))
+    n = z.shape[1]
+    iu = torch.triu_indices(n, n, offset=1, device=z.device)
+    flat = zz[:, iu[0], iu[1]]                                # (B, n(n-1)/2)
+    return torch.cat([bot, flat], dim=1)
+
+
+@torch.inference_mode()
+def forward(model: RecsysModel, batch: dict) -> torch.Tensor:
+    """Returns logits (B,) float32."""
+    cfg = model.cfg
+    dt = cfg.dtype
+    if cfg.kind == "din":
+        return _din_forward(model, batch)
+    gids = global_ids(cfg, batch["sparse"])
+    emb = default_lookup(model.table, gids).to(dt)            # (B, F, E)
+    if cfg.kind == "dlrm":
+        dense = torch.log1p(torch.clamp_min(batch["dense"].to(dt), 0.0))
+        bot = apply_mlp_tower(model.bot_mlp, dense, act=torch.relu,
+                              final_act=torch.relu)
+        x = _dlrm_interact(emb, bot)
+        out = apply_mlp_tower(model.top_mlp, x, act=torch.relu)
+        return out[:, 0].to(torch.float32)
+    if cfg.kind == "dcn-v2":
+        dense = torch.log1p(torch.clamp_min(batch["dense"].to(dt), 0.0))
+        x0 = torch.cat([dense, emb.reshape(emb.shape[0], -1)], dim=1)
+        x = x0
+        for i in range(cfg.n_cross):
+            w = model.cross_w[i].to(dt)
+            b = model.cross_b[i].to(dt)
+            x = x0 * (x @ w + b) + x                          # DCN-v2 cross
+        out = apply_mlp_tower(model.top_mlp, x, act=torch.relu)
+        return out[:, 0].to(torch.float32)
+    if cfg.kind == "deepfm":
+        # FM second order: 0.5 * ((sum v)^2 - sum v^2), summed over E
+        s = torch.sum(emb, dim=1)
+        s2 = torch.sum(emb * emb, dim=1)
+        fm2 = 0.5 * torch.sum(s * s - s2, dim=1)
+        fm1 = torch.sum(default_lookup(model.fm_w, gids), dim=1)
+        deep = apply_mlp_tower(model.top_mlp, emb.reshape(emb.shape[0], -1),
+                               act=torch.relu)[:, 0]
+        return (fm1 + fm2 + deep + model.fm_b).to(torch.float32)
+    raise ValueError(cfg.kind)
+
+
+def _din_forward(model: RecsysModel, batch: dict) -> torch.Tensor:
+    cfg = model.cfg
+    dt = cfg.dtype
+    gids = global_ids(cfg, batch["sparse"])
+    emb = default_lookup(model.table, gids).to(dt)            # (B, F, E)
+    target = emb[:, cfg.item_field]                           # (B, E)
+    hist_gids = history_ids(cfg, batch["hist"])               # (B, S)
+    valid = (hist_gids >= 0)[..., None].to(dt)
+    hist = default_lookup(model.table, hist_gids.clamp_min(0)).to(dt) * valid
+    t = target[:, None, :].expand_as(hist)
+    af = torch.cat([hist, t, hist - t, hist * t], dim=-1)
+    scores = apply_mlp_tower(model.attn_mlp, af, act=torch.sigmoid)
+    scores = torch.where(valid > 0, scores, -1e30)
+    w = torch.softmax(scores, dim=1)                          # (B, S, 1)
+    # sum_s w[b, s] * table[hist_gids[b, s]], padded slots contributing 0
+    interest = embedding_bag_fixed(model.table, hist_gids, w[..., 0]).to(dt)
+    x = torch.cat([emb.reshape(emb.shape[0], -1), interest], dim=1)
+    out = apply_mlp_tower(model.top_mlp, x, act=torch.relu)
+    return out[:, 0].to(torch.float32)
+
+
+def loss_fn(model: RecsysModel, batch: dict):
+    """Mean binary cross-entropy of the logits against ``batch["label"]``."""
+    logits = forward(model, batch)
+    y = batch["label"].to(torch.float32)
+    loss = torch.mean(torch.clamp_min(logits, 0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return loss, {"bce": loss}
+
+
+# --------------------------------------------------------------------------
+# retrieval serving
+# --------------------------------------------------------------------------
+@torch.inference_mode()
+def user_embedding(model: RecsysModel, batch: dict) -> torch.Tensor:
+    """A query-side vector in item-embedding space: DIN's masked mean over
+    its history, otherwise the mean over the sparse fields."""
+    cfg = model.cfg
+    if cfg.kind == "din":
+        ids = history_ids(cfg, batch["hist"])
+    else:
+        ids = global_ids(cfg, batch["sparse"]).to(torch.int32)
+    pooled = embedding_bag_fixed(model.table, ids, combiner="mean")
+    return pooled.to(torch.float32)
+
+
+@torch.inference_mode()
+def serve_retrieval(model: RecsysModel, batch: dict,
+                    candidates: torch.Tensor, k: int = 100):
+    """Score ``candidates`` (N, E) by inner product with each query's user
+    embedding; exact top-k: (scores (B, k) descending, ids (B, k) int32)."""
+    u = user_embedding(model, batch)                          # (B, E)
+    scores = u @ candidates.T.to(u.dtype)                     # (B, N)
+    top, ids = torch.topk(scores, k, dim=1)
+    return top, ids.to(torch.int32)
+
+
+def item_vectors(model: RecsysModel, field: int,
+                 n_items: Optional[int] = None) -> torch.Tensor:
+    """Rows of one field's embedding table = the candidate corpus (a view
+    of the table)."""
+    cfg = model.cfg
+    _, offsets = stack_vocab_offsets(cfg.vocab_sizes)
+    start = int(offsets[field])
+    n = n_items or int(cfg.vocab_sizes[field])
+    # jax.lax.dynamic_slice_in_dim clamps the start so the slice fits
+    start = max(0, min(start, model.table.shape[0] - n))
+    return model.table[start : start + n]

@@ -24,6 +24,7 @@ def rehearsal():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cs, "sync", lambda: None)
         mp.setattr(cs, "idle_share", lambda fn, wall_ms, what: None)
+        mp.setattr(cs, "peak_memory", lambda reset=False: None)
         mp.setattr(cs, "expect_launches", _no_launches)
         mp.setattr(cs, "time_call",
                    lambda fn, symbol=None, reps=0: {"device_ms": None,
@@ -53,8 +54,17 @@ def test_extend_blocks():
     assert cs.extend_blocks(64) == 4 and cs.extend_blocks(65) == 5
 
 
-def test_phase2_rows(rehearsal):
+@pytest.fixture(scope="module")
+def recsys(rehearsal):
+    """Phase 8's inputs on the reduced DIN and DCN-v2: 3 serve_p99 batches
+    of 64, a bulk batch of 300, 25 retrieval candidates."""
+    return cs.recsys_setup("cpu", reduced=True, p99=64, bulk=300,
+                           n_candidates=25, n_batches=3)
+
+
+def test_phase2_rows(rehearsal, recsys):
     rows = cs.phase2("cpu", n_queries=64)
+    rows["bag_lookup"] = cs.bag_checks(recsys, "cpu")[0]   # as main() does
     assert set(rows) == set(cs.KERNELS)
     for r in rows.values():
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
@@ -212,3 +222,81 @@ def test_delete_phase(rehearsal):
 
 def test_compare_extend(rehearsal):
     assert cs.compare_extend_phase("cpu", n=N_SMALL) == 1.0
+
+
+def test_recsys_setup(recsys):
+    assert set(recsys) == set(cs.RECSYS_ARCHS)
+    din, dcn = recsys["din"], recsys["dcn-v2"]
+    assert din["cfg"].kind == "din" and dcn["cfg"].kind == "dcn-v2"
+    assert len(din["p99"]) == 3 and din["p99"][0]["hist"].shape == (64, 10)
+    assert din["bulk"]["sparse"].shape == (300, 3) and "bulk" not in dcn
+    assert dcn["query"]["sparse"].shape == (1, 5)      # retrieval_cand: B=1
+    for r in (din, dcn):
+        assert r["bytes"] == sum(p.numel() * 4
+                                 for p in r["model"].parameters())
+
+
+def test_recsys_setup_reads_the_published_cells():
+    """Without overrides the batch sizes and candidates are RECSYS_SHAPES'
+    (checked on the specs, not by building the full-width models here)."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch("dcn-v2")
+    assert spec.cell("serve_p99")["batch"] == 512
+    assert spec.cell("serve_bulk")["batch"] == 262_144
+    assert spec.cell("retrieval_cand")["n_candidates"] == 1_000_000
+    assert spec.model.vocab_sizes[cs.DCN_CANDIDATE_FIELD] >= 1_000_000
+    assert spec.model.total_rows == 33_762_577
+
+
+def test_phase8_bag_rows(recsys):
+    rows = cs.bag_checks(recsys, "cpu")
+    shapes = [r["shape"] for r in rows]
+    for what in ("DIN interest serve_p99: B=64 F=10 E=8",
+                 "DIN interest serve_bulk: B=300 F=10 E=8",
+                 "DCN-v2 user_embedding retrieval_cand: B=1 F=5 E=8",
+                 "DCN-v2 user_embedding serve_p99: B=64 F=5 E=8",
+                 "ragged: B=37 F=5 E=7 V=1000"):
+        assert any(s.startswith(what) for s in shapes), what
+    for r in rows:
+        assert r["name"] == "bag_lookup" and r["max_abs_err"] == 0.0
+        assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+        assert r["tl"] is not None                     # F.embedding_bag
+
+
+def test_bag_bound_counts_what_the_data_needs():
+    """ids, weights, each distinct row named by a valid id, the output."""
+    import torch
+
+    table = torch.zeros((10, 4))
+    ids = torch.tensor([[1, 1, -1], [2, 12, -1]], dtype=torch.int32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cs, "time_call",
+                   lambda fn, symbol=None, reps=0: {"device_ms": None,
+                                                    "event_ms": 0.0})
+        r = cs.check_bag_lookup(table, ids, torch.ones((2, 3)), "t")
+        r0 = cs.check_bag_lookup(table, ids, None, "t")
+    rows = 3                                           # 1, 2 and 12 -> 9
+    want = (6 * 4 + 6 * 4 + rows * 4 * 4 + 2 * 4 * 4) / cs.HBM_BYTES_PER_S
+    assert r["bound_ms"] == pytest.approx(want * 1e3)
+    assert r0["bound_ms"] == pytest.approx((want - 24 / cs.HBM_BYTES_PER_S)
+                                           * 1e3)
+    assert "4 valid ids, 3 rows" in r["shape"]
+
+
+def test_recsys_phase(recsys):
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    out = cs.recsys_phase(
+        recsys, "cpu",
+        lambda fn, *a, **kw: cs.counted(ops, launches, fn, *a, **kw))
+    din, dcn = out["din"], out["dcn-v2"]
+    assert len(din["p99_ms"]) == 3 and len(dcn["p99_ms"]) == 3
+    assert din["bulk_samples_s"] > 0 and din["bulk_peak_bytes"] is None
+    assert set(din["retrieval"]) == {1, 64} and set(dcn["retrieval"]) == {1}
+    for r in (*din["retrieval"].values(), *dcn["retrieval"].values()):
+        assert r["agree"] == 1.0
+    top, ids = dcn["retrieval"][1]["got"]
+    assert ids.shape == (1, 25) and int(ids.max()) < 25
+    assert "bag_lookup" in launches
+    assert all(n == 0 for n in launches.values()), launches  # CPU: plain
