@@ -24,8 +24,11 @@ Phases (any failure raises and exits non-zero):
      80; the merges at their rerank-wide beams), and the brute-force
      l2_topk at the serving batch (B=256, k in {10, 100}), a single query,
      a ragged shape (B=37, N=1000, m=33, k=50), the padding case (B=3,
-     N=130, m=16, k=50) and the ground truths of phases 4 and 4c, with
-     times;
+     N=130, m=16, k=50) and the ground truths of phases 4 and 4c, each
+     also with the base cut into the splits the kernel plans, held
+     bit-identical (torch.equal) to one split in both modes; with times
+     (kernel, plain version and library call alike: CUDA events around
+     a replay of a CUDA graph of 50 back-to-back calls, over 50);
   3. build: make_dataset("manifold", n, 10000, 192) under the paper's
      audio parameters (degree 20, k_ext 40, eps_ext 0.3), the device
      extension in blocks of 16, wave_size=64, then the Table-1
@@ -73,7 +76,9 @@ Phases (any failure raises and exits non-zero):
      DCN-v2's user_embedding at B=1 and 512, a ragged case); then DIN:
      RECSYS_BATCHES serve_p99 batches of 512 (ms a batch, the idle share
      of one), one serve_bulk forward of 262,144 (s, samples/s, peak
-     memory), retrieval (k=100) over the 63,001 item rows at B=1 and 512;
+     memory), retrieval (k=100) over the 63,001 item rows at B=1 and 512
+     (each retrieval also timed with and without user_embedding's id
+     bounds check);
      DCN-v2 (its 33,762,577-row table, 2.16 GB): table init s and bytes,
      RECSYS_BATCHES serve_p99 batches, retrieval_cand (B=1 over 1,000,000
      rows of field 2); every logit finite; the DIN batches and the three
@@ -115,6 +120,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
 TIMING_REPS = 50
 PROFILE_TRIES = 3
+GRAPH_REPLAYS = 3                  # timed replays of a kernel row's graph
 N_AUDIO, DIM, N_QUERIES, BATCH = 53_387, 192, 10_000, 256
 K, EPS = 10, 0.1                   # serving: recall@10 at eps 0.1
 K_EXT, WAVE = 40, 64               # the audio config's k_ext; insert wave
@@ -148,6 +154,7 @@ N_DELETE = 512                     # phase 7
 RECSYS_ARCHS = ("din", "dcn-v2")
 RECSYS_BATCHES = 20                # serve_p99 batches per model
 RETRIEVAL_K = 100
+RETRIEVAL_REPS = 20                # retrievals timed with and without the id check
 DCN_CANDIDATE_FIELD = 2            # Criteo-Kaggle field 2: 10.1M rows
 BAG_RTOL, BAG_ATOL = 1e-5, 1e-6    # kernel vs plain: bag sums and logits
 
@@ -198,13 +205,19 @@ def device_profile(fn, reps: int = 1, host: bool = True) -> list:
 
 
 def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
-    """Per-call device time of ``fn`` (torch.profiler over ``reps`` calls,
-    after a warm-up) and the median CUDA-event time of one call, which
-    also holds the launch overhead.  With ``symbol`` the device time is
-    that of the ``__global__`` function of that name alone; without, it
-    is the sum of every kernel, copy and fill ``fn`` ran.  ``device_ms``
-    is None if the profiler saw no device activity at all (the JSON line
-    then carries the event time, see ``kernel_ms``)."""
+    """Per-call device time of ``fn``: CUDA events around a replay of one
+    CUDA graph that holds ``reps`` back-to-back calls, divided by ``reps``
+    (the median of GRAPH_REPLAYS replays, after an eager warm-up and a
+    warm-up replay).  That counts every kernel, copy and fill the calls
+    launch (both of l2_topk's passes), and the small gaps between kernels
+    in a graph; ``timed_by`` is "cuda_graph".  A call that cannot be
+    captured is timed by events around ``reps`` eager calls instead
+    ("events_loop", launch overhead included), and the log says why.
+    ``event_ms`` is the median event time of one eager call, launch
+    overhead included.  With ``symbol``, torch.profiler runs ``reps``
+    calls once more and every ``__global__`` function whose name holds
+    ``symbol`` is printed with the launches it saw and their mean: a
+    cross-check, read by no number."""
     import torch
 
     fn()
@@ -218,29 +231,47 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
         e.record()
         e.synchronize()
         ev.append(s.elapsed_time(e))
-    # the profiler has dropped some of 50 back-to-back launches of a few
-    # microseconds (36 of 50 seen on one H100 run; 47-49 of 50, three
-    # times in a row, on another), and late in one run it saw no device
-    # activity at all: profile again, up to PROFILE_TRIES times, until it
-    # sees every launch; after that, the device time of a launch is the
-    # mean over the launches it saw (never their sum over ``reps``), and
-    # with none seen it is not measured (None)
-    seen = reps
-    for _ in range(PROFILE_TRIES):
-        rows = device_profile(fn, reps)
-        if symbol is None:
-            break
-        rows = [r for r in rows if symbol in r[0]]
-        seen = sum(r[2] for r in rows)
-        if seen == reps:
-            break
-        log(f"  the profiler saw {symbol} launched {seen} times in {reps} "
-            "calls; profiling again")
-    else:
-        log(f"  {symbol}: " + (f"the mean over the {seen} launches seen"
-                               if seen else "device time not measured"))
-    dev_ms = sum(r[1] for r in rows) / seen if rows else None
-    return {"device_ms": dev_ms, "event_ms": float(np.median(ev))}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                     # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        log(f"  graph capture refused ({str(exc).splitlines()[0][:160]}): "
+            f"timed by events around {reps} eager calls")
+        graph = None
+    times = []
+    for _ in range(GRAPH_REPLAYS + 1):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        if graph is None:
+            for _ in range(reps):
+                fn()
+        else:
+            graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    how = "events_loop" if graph is None else "cuda_graph"
+    del graph                                    # frees its memory pool
+    if symbol is not None:
+        seen = [r for r in device_profile(fn, reps) if symbol in r[0]]
+        for name, total, n in seen:
+            log(f"  profiler cross-check {name[:70]}: {n} launches in {reps} "
+                f"calls, {total / n:.6f} ms each")
+        if not seen:
+            log(f"  profiler cross-check: no {symbol} launch seen in {reps} "
+                "calls")
+    return {"device_ms": float(np.median(times[1:])),
+            "timed_by": how,
+            "event_ms": float(np.median(ev))}
 
 
 def idle_share(fn, wall_ms: float, what: str) -> None:
@@ -273,13 +304,44 @@ def expect_launches(kernel: str, got: int, want: int, what: str) -> None:
         raise AssertionError(f"{got} {kernel} launches for {want} {what}")
 
 
-def kernel_ms(t: dict) -> float:
-    return t["device_ms"] if t["device_ms"] is not None else t["event_ms"]
-
-
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def timings(r: dict, library: str) -> str:
+    """A check's kernel, plain and library times as one log phrase."""
+    def one(t):
+        return (f"{t['device_ms']:.6f} ms device ({t['timed_by']}; "
+                f"{t['event_ms']:.6f} ms per eager call)")
+
+    lib = "n/a" if r["tl"] is None else one(r["tl"])
+    return (f"kernel {one(r['t'])}, plain {one(r['tp'])}, {library} {lib}, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+            f"max_abs_err {r['max_abs_err']:.3g}")
+
+
+def timed_by(r: dict) -> str:
+    """How a check's three times were taken: one word when they agree."""
+    ways = {"kernel": r["t"]["timed_by"], "plain": r["tp"]["timed_by"]}
+    if r["tl"] is not None:
+        ways["library"] = r["tl"]["timed_by"]
+    if len(set(ways.values())) == 1:
+        return ways["kernel"]
+    return "; ".join(f"{k}: {v}" for k, v in ways.items())
+
+
+def kernel_rows(checks: dict, launches: dict) -> list:
+    """The kernels' JSON rows: one per kernel, at its check's shape."""
+    return [{"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "replaces": KERNELS[name], "launches": launches[name],
+             "max_abs_err": r["max_abs_err"], "ms": r["t"]["device_ms"],
+             "plain_ms": r["tp"]["device_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"],
+             "library_ms": None if r["tl"] is None else r["tl"]["device_ms"],
+             "timed_by": timed_by(r)}
+            for name, r in checks.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +501,9 @@ def check_l2_topk(inp, device, B, k, N=None, m=None,
     N_AUDIO of them, or (with ``N`` and ``m``) seeded normal queries and
     rows of that ragged shape.  Distances at rtol and atol 1e-5; ids
     through their true distances at 1e-4 (an id may differ on a tie);
-    every id in [0, N)."""
+    every id in [0, N); and the kernel's own split of the base
+    (``plan_splits``) bit-identical (``torch.equal``) to one split, in
+    both modes.  Every timing counts both of the kernel's passes."""
     import torch
     from repro_torch.kernels.l2_topk import ops
 
@@ -453,6 +517,7 @@ def check_l2_topk(inp, device, B, k, N=None, m=None,
                          device=device)
         q = torch.tensor(rng.normal(size=(B, m)).astype(np.float32),
                          device=device)
+    plan = ops.plan_splits(B, N, k, ops.sm_count(device))
     err, same = 0.0, 1.0
     for squared in (False, True):
         got_d, got_i = ops.l2_topk(q, x, k, squared=squared)
@@ -463,13 +528,18 @@ def check_l2_topk(inp, device, B, k, N=None, m=None,
                                  "returned an id outside [0, N)")
         torch.testing.assert_close(true_dists(q, x, got_i, squared),
                                    want_d.double(), rtol=1e-4, atol=1e-4)
+        one_d, one_i = ops.l2_topk(q, x, k, squared=squared, splits=1)
+        if not (torch.equal(got_d, one_d) and torch.equal(got_i, one_i)):
+            raise AssertionError(
+                f"l2_topk (B={B} N={N} m={m} k={k}, squared={squared}): "
+                f"S={plan.splits} differs from S=1")
         if not squared:
             err = float((got_d - want_d).abs().max())
             same = float((got_i == want_i).float().mean())
     torch.backends.cuda.matmul.allow_tf32 = False
     qn = torch.sum(q * q, dim=1, keepdim=True)
     xn = torch.sum(x * x, dim=1)
-    t = time_call(lambda: ops.l2_topk(q, x, k), "l2_topk_kernel", reps)
+    t = time_call(lambda: ops.l2_topk(q, x, k), "l2_topk", reps)
     tp = time_call(lambda: ops.l2_topk(q, x, k, impl="ref"), reps=reps)
     tl = time_call(lambda: torch.topk(
         torch.addmm(xn[None, :], q, x.T, alpha=-2.0).add_(qn), k, dim=1,
@@ -477,9 +547,11 @@ def check_l2_topk(inp, device, B, k, N=None, m=None,
     nb = (B + N) * m * 4 + B * k * 8
     bms, by = bound_ms(nb, 2 * B * N * m)
     return dict(name="l2_topk", max_abs_err=err, t=t, tp=tp, tl=tl,
-                bound_ms=bms, bound_by=by,
+                bound_ms=bms, bound_by=by, splits=plan.splits, tq=plan.tq,
                 shape=f"B={B} N={N} m={m} k={k} f32 l2, ids equal "
-                      f"{same:.4%}",
+                      f"{same:.4%}; S={plan.splits} (TQ={plan.tq}, "
+                      f"{plan.split_tiles} tiles of {plan.tn} rows a split) "
+                      "bit-identical to S=1",
                 tol="dists rtol 1e-5; ids by true distance 1e-4")
 
 
@@ -695,15 +767,8 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
                check_l2_topk(inp, device, 37, 50, N=1000, m=33),
                check_l2_topk(inp, device, 3, 50, N=130, m=16)]
     for r in results:
-        tl = r["tl"]
         log(f"phase2 {r['name']} [{r['shape']}] ok ({r['tol']}): "
-            f"kernel {kernel_ms(r['t']):.6f} ms device "
-            f"({r['t']['event_ms']:.6f} ms per call), plain "
-            f"{kernel_ms(r['tp']):.6f} ms device "
-            f"({r['tp']['event_ms']:.6f} ms per call), "
-            f"library {'n/a' if tl is None else f'{kernel_ms(tl):.6f} ms'}, "
-            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
-            f"max_abs_err {r['max_abs_err']:.3g}")
+            + timings(r, "library"))
     # the JSON rows carry the main path's shapes: the classic hop's merge
     # (C = d), the fused preset's hop (E = 4), an extend block's lune
     # test (K = k_ext), the build's launches, and the ground truth's scan
@@ -1501,7 +1566,7 @@ def check_bag_lookup(table, ids, weights, shape: str) -> dict:
     lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=w)
     torch.testing.assert_close(lib, want, rtol=BAG_RTOL, atol=BAG_ATOL)
     t = time_call(lambda: ops.bag_lookup(table, ids, weights),
-                  "bag_lookup_kernel")
+                  "bag_lookup")
     tp = time_call(lambda: ops.bag_lookup(table, ids, weights, impl="ref"))
     tl = time_call(lambda: F.embedding_bag(safe, table, mode="sum",
                                            per_sample_weights=w))
@@ -1551,16 +1616,9 @@ def bag_checks(rec: dict, device, seed=0) -> list:
     ids[0, :3] = [V, V + 11, INVALID]
     ids = torch.tensor(ids, device=device)
     rows.append(check_bag_lookup(table, ids, weights_for(ids), "ragged"))
-    def ms(t):
-        dev = ("not measured" if t["device_ms"] is None
-               else f"{t['device_ms']:.6f} ms")
-        return f"device {dev} ({t['event_ms']:.6f} ms per call)"
-
     for r in rows:
-        log(f"phase8 bag_lookup [{r['shape']}] ok ({r['tol']}): kernel "
-            f"{ms(r['t'])}, plain {ms(r['tp'])}, F.embedding_bag "
-            f"{ms(r['tl'])}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
-            f"max_abs_err {r['max_abs_err']:.3g}")
+        log(f"phase8 bag_lookup [{r['shape']}] ok ({r['tol']}): "
+            + timings(r, "F.embedding_bag"))
     return rows
 
 
@@ -1603,13 +1661,35 @@ def _check_retrieval(what: str, got, want, u, cands) -> float:
     return same
 
 
-def recsys_phase(rec: dict, device, count=None) -> dict:
+def retrieval_check_cost(model, q, cands, k: int, reps: int
+                         ) -> tuple[float, float]:
+    """Median wall ms of ``serve_retrieval`` with ``user_embedding``'s id
+    bounds check (one device-to-host read) and with the check replaced by
+    a no-op, as the call ran before it; the two interleaved."""
+    from repro_torch.models import recsys as R
+
+    checked, unchecked = [], []
+    real = R.check_rows
+    for _ in range(reps):
+        checked.append(_timed(R.serve_retrieval, model, q, cands, k)[1])
+        R.check_rows = lambda ids, n_rows: None
+        try:
+            unchecked.append(_timed(R.serve_retrieval, model, q, cands, k)[1])
+        finally:
+            R.check_rows = real
+    return float(np.median(checked)), float(np.median(unchecked))
+
+
+def recsys_phase(rec: dict, device, count=None,
+                 check_reps: int = RETRIEVAL_REPS) -> dict:
     """DIN and DCN-v2 served at the widths ``rec`` holds: each model's
     serve_p99 batches (ms a batch; DIN's idle share of one), DIN's
     serve_bulk forward (s, samples/s, peak bytes), DIN's retrieval at B=1
     and at serve_p99 over its item field, and DCN-v2's retrieval_cand
     over ``n_candidates`` rows of DCN_CANDIDATE_FIELD (k = RETRIEVAL_K, or
-    every candidate where there are fewer); every logit finite.
+    every candidate where there are fewer), each retrieval also timed
+    ``check_reps`` times with and without the id bounds check of
+    ``user_embedding``; every logit finite.
     Then the DIN batches and the three retrievals again through the plain
     versions.  Returns the numbers and the bag_lookup launches of each
     piece."""
@@ -1677,10 +1757,16 @@ def recsys_phase(rec: dict, device, count=None) -> dict:
             expect_launches("bag_lookup", bag_ops.launches, 1,
                             f"{name} user_embedding")
             _check_finite(f"{name} retrieval scores", got[0])
+            with_check, without = retrieval_check_cost(model, q, cands, kk,
+                                                       check_reps)
             log(f"phase8 {name} retrieval: B={nq}, k={kk} over "
-                f"{cands.shape[0]:,} candidates in {t:.3f} ms")
+                f"{cands.shape[0]:,} candidates in {t:.3f} ms; median of "
+                f"{check_reps}: {with_check:.3f} ms with the id bounds check, "
+                f"{without:.3f} ms without it, a difference of "
+                f"{with_check - without:.3f} ms")
             res["retrieval"][nq] = {"ms": t, "got": got, "q": q,
-                                    "cands": cands}
+                                    "cands": cands, "ms_checked": with_check,
+                                    "ms_unchecked": without}
         out[name] = res
 
     # the plain versions on the same inputs
@@ -1784,17 +1870,7 @@ def main(argv=None) -> int:
     stamp("phase 6, build part")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    rows = []
-    for name, r in checks.items():
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": KERNELS[name], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": kernel_ms(r["t"]),
-            "plain_ms": kernel_ms(r["tp"]), "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": None if r["tl"] is None else kernel_ms(r["tl"])})
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": kernel_rows(checks, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,18 +9,28 @@
 //
 // Bound on the H100: bytes.  Each field moves one row of E floats from a
 // random address for 2E flops.  Design: one warp per bag; the TPU's
-// sequential F axis becomes a loop inside the warp, and out[b] lives in a
-// float32 register of each lane, written once.  Lanes span E (16-byte
-// loads of 4 floats where E % 4 == 0 and the table is 16-byte aligned:
-// E = 16 and 128 take them, E = 18's 72-byte rows do not; otherwise one
-// float a lane; a strided loop when a row has more than 32 units).  The
-// bag's ids and weights are read once, 32 fields at a time, one a lane,
-// and broadcast with __shfl_sync; fields are added in order f = 0..F-1,
-// the TPU kernel's order.  An invalid id (< 0) has weight 0 and its row is
-// never read.  Row offsets are 64-bit (row x E passes 2^31 on DLRM's
-// table).  Nothing is padded: the TPU wrapper's 128-lane padding and the
-// output slice are gone.  Later work: with E = 16 or 18 half of each warp
-// idles; several bags a warp, or TMA row gathers, would fill it.
+// sequential F axis becomes a loop inside the warp, and out[b] lives in
+// float32 registers, written once.  Lanes span E (16-byte loads of 4
+// floats where E % 4 == 0 and the table is 16-byte aligned: E = 16 and 128
+// take them, E = 18's 72-byte rows do not; otherwise one float a lane; a
+// strided loop when a row has more than 32 units).  The bag's ids and
+// weights are read once, 32 fields at a time, one a lane, and broadcast
+// with __shfl_sync.  An invalid id (< 0) has weight 0 and its row is never
+// read.  Row offsets are 64-bit (row x E passes 2^31 on DLRM's table).
+// Nothing is padded: the TPU wrapper's 128-lane padding and the output
+// slice are gone.
+//
+// Where a row's units are a power of two below 32 (E = 16 in float4: 4
+// units; the reduced configs' E = 8: 2), one row would leave most lanes
+// idle and the fields would be read one after another.  There the warp is
+// split into G = 32 / units lane groups: group g takes fields f = g (mod
+// G), in order, into its own float32 accumulators, so G rows are in flight
+// at once (DCN-v2's F = 26 at E = 16: at most 4 row loads a lane instead
+// of 26 in series); then the groups are summed by __shfl_xor_sync over
+// lane offsets units, 2 units, ... .  That order is fixed, so the result
+// is deterministic; it differs from the in-order sum by rounding only.
+// Any other E (DIN's 18, 7, DLRM's 128) keeps the in-order path, fields
+// added f = 0..F-1 as the TPU kernel adds them.
 #include "common.cuh"
 
 namespace {
@@ -35,6 +45,9 @@ struct Vec<1> {
     acc = fmaf(w, __ldg(p), acc);
   }
   __device__ static void zero(T& acc) { acc = 0.f; }
+  __device__ static void add_xor(T& acc, int o) {
+    acc += __shfl_xor_sync(repro::kFullMask, acc, o);
+  }
 };
 
 template <>
@@ -48,6 +61,12 @@ struct Vec<4> {
     acc.w = fmaf(w, x.w, acc.w);
   }
   __device__ static void zero(T& acc) { acc = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static void add_xor(T& acc, int o) {
+    acc.x += __shfl_xor_sync(repro::kFullMask, acc.x, o);
+    acc.y += __shfl_xor_sync(repro::kFullMask, acc.y, o);
+    acc.z += __shfl_xor_sync(repro::kFullMask, acc.z, o);
+    acc.w += __shfl_xor_sync(repro::kFullMask, acc.w, o);
+  }
 };
 
 // VW floats a lane; units = E / VW units a row.
@@ -92,15 +111,65 @@ __global__ void bag_lookup_kernel(const float* __restrict__ table,
   }
 }
 
+// Lane groups of `units` lanes (a power of two below 32): group g sums
+// fields g, g + G, ... of the bag, then the groups are added pairwise.
+template <int VW>
+__global__ void bag_lookup_grouped_kernel(const float* __restrict__ table,
+                                          long long n_rows, int units,
+                                          const int* __restrict__ ids,
+                                          const float* __restrict__ weights,
+                                          float* __restrict__ out,
+                                          long long n_bags, int F) {
+  using V = Vec<VW>;
+  using T = typename V::T;
+  const long long bag =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (bag >= n_bags) return;  // whole warp leaves together
+  const int G = 32 / units;
+  const int g = lane / units;
+  const int u = lane % units;
+  const T* rows = reinterpret_cast<const T*>(table);
+  const int* bag_ids = ids + bag * F;
+  const float* bag_w = weights == nullptr ? nullptr : weights + bag * F;
+  T acc;
+  V::zero(acc);
+  for (int f0 = 0; f0 < F; f0 += 32) {
+    int my_id = repro::kInvalid;
+    float my_w = 0.f;
+    if (f0 + lane < F) {
+      my_id = bag_ids[f0 + lane];
+      my_w = bag_w == nullptr ? 1.f : bag_w[f0 + lane];
+    }
+    // group g's fields of this block of 32 sit in lanes g, g + G, ...
+    for (int src = g; src < 32; src += G) {
+      const int id = __shfl_sync(repro::kFullMask, my_id, src);
+      const float w = __shfl_sync(repro::kFullMask, my_w, src);
+      if (id < 0) continue;  // weight 0 (or past F): nothing to add
+      const long long row = id >= n_rows ? n_rows - 1 : id;
+      V::fma(acc, w, rows + row * units + u);
+    }
+  }
+  for (int o = units; o < 32; o <<= 1) V::add_xor(acc, o);
+  if (g == 0) reinterpret_cast<T*>(out)[bag * units + u] = acc;
+}
+
 template <int VW>
 void launch_vw(const float* table, long long n_rows, int E, const int* ids,
                const float* weights, float* out, long long B, int F,
                cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (B * 32 + threads - 1) / threads;
-  bag_lookup_kernel<VW><<<static_cast<unsigned>(blocks), threads, 0,
-                          stream>>>(table, n_rows, E / VW, ids, weights, out,
-                                    B, F);
+  const int units = E / VW;
+  if (units < 32 && (units & (units - 1)) == 0) {
+    bag_lookup_grouped_kernel<VW><<<static_cast<unsigned>(blocks), threads,
+                                    0, stream>>>(table, n_rows, units, ids,
+                                                 weights, out, B, F);
+  } else {
+    bag_lookup_kernel<VW><<<static_cast<unsigned>(blocks), threads, 0,
+                            stream>>>(table, n_rows, units, ids, weights, out,
+                                      B, F);
+  }
 }
 
 }  // namespace

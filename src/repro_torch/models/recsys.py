@@ -166,6 +166,14 @@ def default_lookup(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
     return table[flat_ids.to(torch.int64)]
 
 
+def check_rows(ids: torch.Tensor, n_rows: int) -> None:
+    """Raise ``IndexError`` if an id is >= ``n_rows`` (one device-to-host
+    read of the largest id)."""
+    if ids.numel() and int(ids.max()) >= n_rows:
+        raise IndexError(f"row id {int(ids.max())} outside a table of "
+                         f"{n_rows} rows")
+
+
 def global_ids(cfg: RecsysConfig, sparse: torch.Tensor) -> torch.Tensor:
     """Per-field ids (B, F) -> global stacked-table rows (B, F)."""
     _, offsets = stack_vocab_offsets(cfg.vocab_sizes)
@@ -268,12 +276,18 @@ def loss_fn(model: RecsysModel, batch: dict):
 @torch.inference_mode()
 def user_embedding(model: RecsysModel, batch: dict) -> torch.Tensor:
     """A query-side vector in item-embedding space: DIN's masked mean over
-    its history, otherwise the mean over the sparse fields."""
+    its history, otherwise the mean over the sparse fields.
+
+    Raises ``IndexError`` on a row id at or past the stacked table's end,
+    as :func:`forward` does (the bag would clip it to the last row; the
+    JAX package's ``jnp.take`` gives NaN).  DIN's -1 history padding stays
+    valid.  The check costs one device-to-host read per call."""
     cfg = model.cfg
     if cfg.kind == "din":
         ids = history_ids(cfg, batch["hist"])
     else:
         ids = global_ids(cfg, batch["sparse"]).to(torch.int32)
+    check_rows(ids, model.table.shape[0])
     pooled = embedding_bag_fixed(model.table, ids, combiner="mean")
     return pooled.to(torch.float32)
 

@@ -36,13 +36,19 @@ def _inputs(V, E, B, F, seed):
     return rng, table, ids, w
 
 
-@pytest.mark.parametrize("V,E,B,F", [
-    (1000, 16, 8, 26),     # DLRM-ish
-    (37, 7, 3, 5),         # tiny unaligned
-    (5000, 128, 4, 13),
+@pytest.mark.parametrize("V,E,B,F,dcn", [
+    pytest.param(1000, 16, 8, 26, False, id="1000-16-8-26"),   # DLRM-ish
+    pytest.param(37, 7, 3, 5, False, id="37-7-3-5"),           # tiny unaligned
+    pytest.param(5000, 128, 4, 13, False, id="5000-128-4-13"),
+    # DCN-v2's user embedding at retrieval_cand and serve_p99: F=26, E=16,
+    # no weights, rows at init_params' 0.01 scale
+    pytest.param(1000, 16, 1, 26, True, id="1000-16-1-26-dcn"),
+    pytest.param(1000, 16, 512, 26, True, id="1000-16-512-26-dcn"),
 ])
-def test_bag_lookup_plain_matches_jax(V, E, B, F):
+def test_bag_lookup_plain_matches_jax(V, E, B, F, dcn):
     _, table, ids, w = _inputs(V, E, B, F, V + E)
+    if dcn:
+        table, w = table * np.float32(0.01), np.ones_like(w)
     got = bag_ops.bag_lookup(T(table), T(ids), T(w)).numpy()
     want = np.asarray(j_bag_lookup(jnp.asarray(table), jnp.asarray(ids),
                                    jnp.asarray(w), interpret=True))

@@ -1,8 +1,9 @@
 """A rehearsal of ``chip_smoke.py`` on the CPU at a small size: its phase
 functions run with ``device="cpu"``, where every kernel wrapper takes its
-plain version.  The card-only pieces (synchronisation and the profiler)
-are replaced, and each launch count the script expects must read 0 here,
-since a CPU tensor never reaches a kernel."""
+plain version.  The card-only pieces (synchronisation, the profiler and
+the CUDA-graph timer ``time_call``) are replaced, and each launch count
+the script expects must read 0 here, since a CPU tensor never reaches a
+kernel."""
 import os
 import sys
 
@@ -19,6 +20,12 @@ def _no_launches(kernel, got, want, what):
     assert got == 0, f"{got} {kernel} launches on the CPU"
 
 
+def _untimed(fn, symbol=None, reps=0):
+    """``time_call``'s result without the card: one call, no time."""
+    fn()
+    return {"device_ms": 0.0, "timed_by": "cuda_graph", "event_ms": 0.0}
+
+
 @pytest.fixture(scope="module")
 def rehearsal():
     with pytest.MonkeyPatch.context() as mp:
@@ -26,9 +33,7 @@ def rehearsal():
         mp.setattr(cs, "idle_share", lambda fn, wall_ms, what: None)
         mp.setattr(cs, "peak_memory", lambda reset=False: None)
         mp.setattr(cs, "expect_launches", _no_launches)
-        mp.setattr(cs, "time_call",
-                   lambda fn, symbol=None, reps=0: {"device_ms": None,
-                                                    "event_ms": 0.0})
+        mp.setattr(cs, "time_call", _untimed)
         yield mp
 
 
@@ -66,6 +71,18 @@ def test_phase2_rows(rehearsal, recsys):
     rows = cs.phase2("cpu", n_queries=64)
     rows["bag_lookup"] = cs.bag_checks(recsys, "cpu")[0]   # as main() does
     assert set(rows) == set(cs.KERNELS)
+    # the kernels' JSON line: every key of every row, the timing method too
+    line = cs.kernel_rows(rows, dict.fromkeys(rows, 3))
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "timed_by"}
+    assert [r["name"] for r in line] == list(rows)
+    for r in line:
+        assert set(r) == keys and r["timed_by"] == "cuda_graph", r["name"]
+        assert r["launches"] == 3 and r["route"] == "cuda"
+        assert os.path.exists(os.path.join(cs.ROOT, r["source"]))
+    # the ground truth's row at B=64: 32-query tiles, 105 splits of 4 tiles
+    assert rows["l2_topk"]["splits"] == 105 and rows["l2_topk"]["tq"] == 32
     for r in rows.values():
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
         assert r["max_abs_err"] == 0.0          # both sides are plain here
@@ -90,10 +107,30 @@ def test_phase2_rows(rehearsal, recsys):
     (dict(B=3, k=50, N=130, m=16), "B=3 N=130 m=16 k=50"),
 ])
 def test_phase2_l2_topk_checks(rehearsal, kw, shape):
+    from repro_torch.kernels.l2_topk import ops
+
     inp = cs.phase2_inputs("cpu", N=3000)
     r = cs.check_l2_topk(inp, "cpu", **kw)
     assert shape in r["shape"] and "ids equal 100.0000%" in r["shape"]
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+    # the split the card would plan, reported beside its check
+    plan = ops.plan_splits(kw["B"], kw.get("N", 3000), kw["k"], ops.H100_SMS)
+    assert (r["splits"], r["tq"]) == (plan.splits, plan.tq)
+    assert f"S={plan.splits} (TQ={plan.tq}" in r["shape"]
+    assert r["shape"].endswith("bit-identical to S=1")
+
+
+def test_timings_and_timed_by():
+    """A check's log phrase names each time's method; the JSON row's
+    ``timed_by`` is one word when the three agree, each otherwise."""
+    t = {"device_ms": 0.5, "timed_by": "cuda_graph", "event_ms": 0.7}
+    loop = dict(t, timed_by="events_loop")
+    r = dict(t=t, tp=t, tl=None, bound_ms=0.1, bound_by="bytes",
+             max_abs_err=0.0)
+    assert cs.timed_by(r) == "cuda_graph"
+    assert "0.500000 ms device (cuda_graph" in cs.timings(r, "library")
+    assert cs.timed_by(dict(r, tl=loop)) == (
+        "kernel: cuda_graph; plain: cuda_graph; library: events_loop")
 
 
 def test_ground_truth_is_the_scan(rehearsal):
@@ -271,9 +308,7 @@ def test_bag_bound_counts_what_the_data_needs():
     table = torch.zeros((10, 4))
     ids = torch.tensor([[1, 1, -1], [2, 12, -1]], dtype=torch.int32)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(cs, "time_call",
-                   lambda fn, symbol=None, reps=0: {"device_ms": None,
-                                                    "event_ms": 0.0})
+        mp.setattr(cs, "time_call", _untimed)
         r = cs.check_bag_lookup(table, ids, torch.ones((2, 3)), "t")
         r0 = cs.check_bag_lookup(table, ids, None, "t")
     rows = 3                                           # 1, 2 and 12 -> 9
@@ -289,13 +324,17 @@ def test_recsys_phase(recsys):
     launches = dict.fromkeys(ops, 0)
     out = cs.recsys_phase(
         recsys, "cpu",
-        lambda fn, *a, **kw: cs.counted(ops, launches, fn, *a, **kw))
+        lambda fn, *a, **kw: cs.counted(ops, launches, fn, *a, **kw),
+        check_reps=2)
     din, dcn = out["din"], out["dcn-v2"]
     assert len(din["p99_ms"]) == 3 and len(dcn["p99_ms"]) == 3
     assert din["bulk_samples_s"] > 0 and din["bulk_peak_bytes"] is None
     assert set(din["retrieval"]) == {1, 64} and set(dcn["retrieval"]) == {1}
     for r in (*din["retrieval"].values(), *dcn["retrieval"].values()):
         assert r["agree"] == 1.0
+        assert r["ms_checked"] > 0 and r["ms_unchecked"] > 0
+    from repro_torch.models import recsys as R
+    assert R.check_rows.__name__ == "check_rows"       # the check restored
     top, ids = dcn["retrieval"][1]["got"]
     assert ids.shape == (1, 25) and int(ids.max()) < 25
     assert "bag_lookup" in launches

@@ -156,6 +156,46 @@ def test_default_lookup_raises_on_ids_outside_the_table():
         TR.default_lookup(table, torch.tensor([[1, 5]], dtype=torch.int32))
 
 
+@pytest.mark.parametrize("entry", ["user_embedding", "serve_retrieval"])
+@pytest.mark.parametrize("arch", ["dcn-v2", "din"])
+def test_user_embedding_raises_on_ids_outside_the_table(arch, entry):
+    """``user_embedding`` (and so ``serve_retrieval``) raises IndexError on
+    a row id past the stacked table, as ``forward`` does through
+    ``default_lookup``: the bag would clip it to the last row, and the JAX
+    package's ``jnp.take`` gives NaN there.  The same batch without that
+    id, DIN's -1 history padding in it, pools as the JAX package does."""
+    jcfg, tcfg = _configs(arch)
+    params = jax.tree.map(np.asarray,
+                          JR.init_params(jax.random.PRNGKey(1), jcfg))
+    model = recsys_model_from_numpy(params, tcfg, device="cpu")
+    batch = _batch(jcfg, 4)
+    cands = TR.item_vectors(model, jcfg.item_field if arch == "din" else 0)
+
+    def run(b):
+        tb = TR.as_tensors(b, "cpu")
+        if entry == "user_embedding":
+            return TR.user_embedding(model, tb)
+        return TR.serve_retrieval(model, tb, cands, 5)[0]
+
+    got = run(batch)
+    assert bool(torch.isfinite(got).all())
+    if entry == "user_embedding":
+        want = JR.user_embedding(params, _jbatch(batch), jcfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+    bad = {key: v.copy() for key, v in batch.items()}
+    n_rows = model.table.shape[0]
+    offsets = np.cumsum([0, *jcfg.vocab_sizes[:-1]])
+    if arch == "din":               # a history id one past the table's end
+        bad["hist"][0, 0] = n_rows - offsets[jcfg.item_field]
+    else:                           # the last field's id one past its vocab
+        bad["sparse"][0, -1] = jcfg.vocab_sizes[-1]
+    with pytest.raises(IndexError):
+        run(bad)
+    want = JR.user_embedding(params, _jbatch(bad), jcfg)
+    assert not np.isfinite(np.asarray(want)[0]).all()
+
+
 @pytest.mark.parametrize("n", [2, 5, 27])
 def test_dlrm_interaction_pair_order_matches_jax(n):
     """Trap (c): the pairs come in ``jnp.triu_indices(n, k=1)`` order."""
