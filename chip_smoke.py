@@ -26,9 +26,18 @@ Phases (any failure raises and exits non-zero):
      a ragged shape (B=37, N=1000, m=33, k=50), the padding case (B=3,
      N=130, m=16, k=50) and the ground truths of phases 4 and 4c, each
      also with the base cut into the splits the kernel plans, held
-     bit-identical (torch.equal) to one split in both modes; with times
+     bit-identical (torch.equal) to one split in both modes; and the
+     whole-search beam_search over the phase-2 graph at classic serving
+     (B=256, L=30) on float32 and fp16 rows, E=4, E=2 with V=1024, an
+     insert wave (B=64, L=80, k=40, eps 0.3), an exploration hop (B=8,
+     L=42, 32 excluded ids) and refinement's two searches (B=75 and 1,
+     L=40, k=20, eps 0.001), each held equal (torch.equal, every field
+     of the state) to the host loop with the kernels and on >= 99% of id
+     slots to its plain version; with times
      (kernel, plain version and library call alike: CUDA events around
-     a replay of a CUDA graph of 50 back-to-back calls, over 50);
+     a replay of a CUDA graph of 50 back-to-back calls, over 50; the
+     plain whole search, which reads "any lane alive?" to the host, by
+     events around 2 eager calls);
   3. build: make_dataset("manifold", n, 10000, 192) under the paper's
      audio parameters (degree 20, k_ext 40, eps_ext 0.3), the device
      extension in blocks of 16, wave_size=64, then the Table-1
@@ -45,7 +54,8 @@ Phases (any failure raises and exits non-zero):
      seconds (pq's host fit apart), memory_stats() against the bytes
      written out and against the bytes each store's tensors hold, 10,000
      queries (QPS, recall@10, hops, evals), the idle
-     share of one batch;
+     share of one batch; then 512 queries of each store under
+     "multi-e4-fused" (the composed hop on the host loop);
   4c. baselines on the first N_HOST rows and N_BASELINE_QUERIES queries:
      the kGraph (nn_descent, K=20, 6 iterations) searched from vertex 0,
      the random even-regular graph (degree 20, Table-1) searched from the
@@ -91,7 +101,12 @@ timed serving loops (compressed ones and the baselines' too), the
 exploration sessions, the refinement, the deletion and the recsys
 serving only;
 warm-ups, profiled reruns and the runs of the plain versions are not
-counted.
+counted.  Each counted piece that searches is held to one beam_search
+launch for each of its range_search calls where the search kernel takes
+the configuration (a float32 or fp16 store, the composed hop), with no
+beam_merge or gather_dist launch beside them, and to none elsewhere:
+one a wave of the build, 40 for 10,000 "classic" queries in batches of
+256.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.  It imports nothing of
@@ -124,7 +139,8 @@ GRAPH_REPLAYS = 3                  # timed replays of a kernel row's graph
 N_AUDIO, DIM, N_QUERIES, BATCH = 53_387, 192, 10_000, 256
 K, EPS = 10, 0.1                   # serving: recall@10 at eps 0.1
 K_EXT, WAVE = 40, 64               # the audio config's k_ext; insert wave
-K_OPT = 20                         # the audio config's k_opt
+EPS_EXT = 0.3                      # the audio config's eps_ext
+K_OPT, EPS_OPT = 20, 0.001         # the audio config's k_opt and eps_opt
 EXTEND_BLOCK, CHUNK = 16, 16       # DEGParams.extend_block; refine chunk
 REFINE_LANES = 75                  # a chunk's edge tasks (about 4.7 per vertex)
 N_HOST = 4_000                     # the host-extension and comparison builds
@@ -136,6 +152,7 @@ EXPLORE_SESSIONS, EXPLORE_HOPS = 8, 4
 PHASE2 = dict(B=256, d=20, m=192, L=30, V=1024)
 RECALL_FLOOR = 0.90
 AGREE_FLOOR = 0.99
+N_COMPARE = 512                    # queries served again through the plain versions
 RECALL_GAP = 0.005
 GT_AGREE = 0.999                   # kernel vs exact_knn_batched id slots
 GT_RTOL = 1e-5                     # a differing slot must be a tie
@@ -167,6 +184,9 @@ KERNELS = {
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
     "l2_topk": "src/repro/kernels/l2_topk/l2_topk.py:93",
     "bag_lookup": "src/repro/kernels/bag_lookup/bag_lookup.py:38",
+    # the whole search folds beam_merge and gather_dist into one launch
+    "beam_search": "src/repro/kernels/beam_merge/beam_merge.py:189, "
+                   "src/repro/kernels/gather_dist/gather_dist.py:35",
 }
 # phase 4b: the compressed stores served under the "classic" preset
 QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
@@ -654,6 +674,132 @@ def check_fused_hop(inp, device, E) -> dict:
                 tol="ids/nbr_ids/evals exact outside 1e-6 of dmax; rtol 1e-5")
 
 
+@contextlib.contextmanager
+def indexed_rows(tensors):
+    """Record the row indices that each of ``tensors`` is indexed with
+    (``t[idx]``) inside: yields one list of int64 tensors per tensor."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    reads = [[] for _ in tensors]
+
+    class Rows(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.__getitem__:
+                for t, r in zip(tensors, reads):
+                    if args[0] is t:
+                        r.append(torch.as_tensor(args[1]).reshape(-1).long())
+            return func(*args, **(kwargs or {}))
+
+    with Rows():
+        yield reads
+
+
+def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
+                      V=0, X=0, seeds=1, what="serve") -> dict:
+    """The whole-search kernel at one of the main path's shapes, over the
+    phase-2 adjacency (a graph of n_valid vertices) and rows (float32, or
+    fp16 with ``rows="f16"``): B lanes of near-row queries seeded at
+    ``seeds`` random vertices, ``X`` excluded ids a lane, a ``V``-slot
+    visited table.  From one ``init``, the kernel against the host loop
+    with the kernels (``torch.equal`` on every field of the final state)
+    and against the plain version: ids equal on AGREE_FLOOR of the slots,
+    dists within rtol 1e-5 where the ids are equal, and the lanes' total
+    hops and evals within 1 - AGREE_FLOOR of the plain version's (a lane's
+    counters may differ where a distance rounds otherwise, the kernel
+    summing a row's squares in its shuffle order and PyTorch in its own,
+    and a comparison at the radius turns).  A call is timed alone, init
+    and extract outside it.  The bound: the distinct store rows and
+    adjacency rows the call reads (those the plain version indexes, which
+    may add row 0, its filler for a slot it does not score), the queries,
+    exclude lists and visited tables, and the beam in and out, over the
+    memory rate."""
+    import torch
+    from repro_torch.core import beam
+    from repro_torch.core.graph import DEGraph
+    from repro_torch.kernels.beam_search import ops
+    from repro_torch.quant.store import VectorStore
+
+    rng, d, m, n_valid = inp["rng"], PHASE2["d"], PHASE2["m"], inp["n_valid"]
+    adj = inp["adjacency"]
+    graph = DEGraph(adjacency=adj, weights=torch.zeros(adj.shape,
+                                                       device=device),
+                    n=n_valid)
+    store = (VectorStore(data=inp["vectors"].to(torch.float16), codec="fp16")
+             if rows == "f16" else VectorStore(data=inp["vectors"]))
+    q = _near_queries(inp, B, device)
+
+    def ids(shape):
+        return torch.tensor(rng.integers(0, n_valid, size=shape).astype(
+            np.int32), device=device)
+
+    excl = (ids((B, X)) if X else
+            torch.full((B, 1), INVALID, dtype=torch.int32, device=device))
+    st = beam.init(store, q, ids((B, seeds)), excl, n_valid, beam_width=L,
+                   metric="l2", visited_size=V)
+    names = [f.name for f in dataclasses.fields(st)]
+    state = [getattr(st, name) for name in names]
+    max_hops = beam.default_max_hops(L)
+    kw = dict(n_valid=n_valid, k=k, eps1=beam._eps1(eps), expand_width=E,
+              max_hops=max_hops)
+
+    def run(impl="kernel"):
+        return ops.beam_search(adj, store.data, q, excl, *state, impl=impl,
+                               **kw)
+
+    got = run()
+    host = beam.host_loop(st, graph, store, q, excl, k=k, eps=eps,
+                          max_hops=max_hops, metric="l2", expand_width=E,
+                          hop_backend="composed")
+    for name, g in zip(names, got):
+        h = getattr(host, name)
+        if not ((g is None and h is None) or torch.equal(g, h)):
+            raise AssertionError(f"beam_search ({what}, B={B} L={L} E={E} "
+                                 f"{rows} V={V}): {name} differs from the "
+                                 "host loop's")
+    with indexed_rows((adj, store.data)) as reads:
+        plain = run("ref")
+    agree = got[0] == plain[0]
+    same = float(agree.float().mean())
+    if same < AGREE_FLOOR:
+        raise AssertionError(f"beam_search ({what}): ids equal the plain "
+                             f"version's on only {same:.4f} of slots")
+    if not torch.allclose(got[1][agree], plain[1][agree], rtol=1e-5, atol=0):
+        raise AssertionError(f"beam_search ({what}): dists differ from the "
+                             "plain version's by more than rtol 1e-5")
+    for name, i in (("hops", 4), ("evals", 5)):
+        a, b = int(got[i].sum()), int(plain[i].sum())
+        if abs(a - b) > (1 - AGREE_FLOOR) * b:
+            raise AssertionError(f"beam_search ({what}): {a} {name} in all, "
+                                 f"the plain version {b}")
+    lanes = int(((got[4] != plain[4]) | (got[5] != plain[5])).sum())
+    both = agree & torch.isfinite(got[1])
+    err = float((got[1] - plain[1])[both].abs().max()) if both.any() else 0.0
+    t = time_call(run, "beam_search_kernel")
+    tp = time_call(lambda: run("ref"), reps=2)
+    hops = got[4] - st.hops
+    scored = int((got[5] - st.evals).sum())
+    expanded = int(hops.sum())
+    n_adj, n_rows = (int(torch.cat(r).unique().numel()) if r else 0
+                     for r in reads)
+    nb = (n_rows * m * store.data.element_size() + n_adj * d * 4
+          + B * L * 10 * 2 + B * m * 4 + excl.numel() * 4 + 2 * B * V * 4
+          + B * 8 * 2)
+    bms, by = bound_ms(nb, 3 * scored * m)
+    return dict(name="beam_search", max_abs_err=err, t=t, tp=tp, tl=None,
+                bound_ms=bms, bound_by=by,
+                shape=f"{what}: B={B} L={L} E={E} k={k} eps={eps} d={d} "
+                      f"m={m} {rows} V={V} X={X}, {expanded / B:.1f} hops and "
+                      f"{scored / B:.1f} evals a lane, at most "
+                      f"{int(hops.max())} hops; {n_rows} distinct rows and "
+                      f"{n_adj} adjacency rows read; ids equal to the plain "
+                      f"version's on {same:.4%} of slots, hops and evals on "
+                      f"{B - lanes} of {B} lanes",
+                tol="every state field equal to the host loop's "
+                    "(torch.equal); ids >= 99% equal to the plain version, "
+                    "dists rtol 1e-5 there, total hops and evals within 1%")
+
+
 def check_mrng_occlusion(inp, device, B, K) -> dict:
     """The lune test at (B, K, d): ids from N_AUDIO rows with INVALID and
     out-of-range slots, weights within 20% of the true distances and each
@@ -765,7 +911,26 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
                check_l2_topk(inp, device, B, 100),
                check_l2_topk(inp, device, 1, K),
                check_l2_topk(inp, device, 37, 50, N=1000, m=33),
-               check_l2_topk(inp, device, 3, 50, N=130, m=16)]
+               check_l2_topk(inp, device, 3, 50, N=130, m=16),
+               # the whole search at the eligible paths' shapes: classic
+               # serving on float32 and fp16 rows, an E=4 and a visited
+               # search, an insert wave, an exploration hop, refinement's
+               # batched and live searches
+               check_beam_search(inp, device, B, L),
+               check_beam_search(inp, device, B, L, rows="f16",
+                                 what="serve fp16"),
+               check_beam_search(inp, device, B, L, E=4, what="multi-e4"),
+               check_beam_search(inp, device, B, L, E=2, V=PHASE2["V"],
+                                 what="visited"),
+               check_beam_search(inp, device, WAVE, L_wave, k=K_EXT,
+                                 eps=EPS_EXT, what="wave"),
+               check_beam_search(inp, device, EXPLORE_SESSIONS, L_explore,
+                                 X=2 + (EXPLORE_HOPS - 1) * K,
+                                 what="explore"),
+               check_beam_search(inp, device, REFINE_LANES, L_opt, k=K_OPT,
+                                 eps=EPS_OPT, seeds=2, what="refine"),
+               check_beam_search(inp, device, 1, L_opt, k=K_OPT,
+                                 eps=EPS_OPT, seeds=2, what="refine live")]
     for r in results:
         log(f"phase2 {r['name']} [{r['shape']}] ok ({r['tol']}): "
             + timings(r, "library"))
@@ -775,7 +940,7 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
     return {"gather_dist": results[0], "beam_merge": results[1],
             "fused_hop": results[4], "mrng_occlusion": results[9],
             "gather_dist_q": results[16], "pq_adc": results[17],
-            "l2_topk": results[25]}
+            "l2_topk": results[25], "beam_search": results[32]}
 
 
 # ---------------------------------------------------------------------------
@@ -786,6 +951,7 @@ def launch_counters() -> dict:
     fp16 rows' launches of gather_dist are also counted apart."""
     from repro_torch.kernels.bag_lookup import ops as bag_ops
     from repro_torch.kernels.beam_merge import ops as bm_ops
+    from repro_torch.kernels.beam_search import ops as bs_ops
     from repro_torch.kernels.fused_hop import ops as fh_ops
     from repro_torch.kernels.gather_dist import ops as gd_ops
     from repro_torch.kernels.gather_dist_q import ops as gdq_ops
@@ -793,7 +959,8 @@ def launch_counters() -> dict:
     from repro_torch.kernels.mrng_occlusion import ops as mo_ops
     from repro_torch.kernels.pq_adc import ops as adc_ops
 
-    return {"gather_dist": (gd_ops, "launches"),
+    return {"beam_search": (bs_ops, "launches"),
+            "gather_dist": (gd_ops, "launches"),
             "gather_dist[fp16]": (gd_ops, "launches_f16"),
             "beam_merge": (bm_ops, "launches"),
             "fused_hop": (fh_ops, "launches"),
@@ -817,6 +984,56 @@ def counted(ops: dict, total: dict, fn, *args, **kwargs):
     return out
 
 
+@contextlib.contextmanager
+def range_search_calls(calls: list):
+    """Append an entry to ``calls`` for every ``range_search`` call made
+    inside.  DEGIndex.search_batch (served queries, exploration, the
+    insert waves, refinement's searches), search_graph and NSW's inserts
+    and searches reach it through these three modules."""
+    from repro_torch.core import build, search
+    from repro_torch.core.baselines import nsw
+
+    inner = search.range_search
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return inner(*args, **kwargs)
+
+    mods = (build, search, nsw)
+    try:
+        for m in mods:
+            m.range_search = counting
+        yield
+    finally:
+        for m in mods:
+            m.range_search = inner
+
+
+def count_searches(count, what: str, fn, *args, kernel: bool, **kwargs):
+    """``count(fn, ...)``, one counted piece of the main path, and its
+    launches read just after it: one beam_search launch for each of its
+    range_search calls where ``kernel`` (the search kernel takes their
+    configuration), and then no beam_merge or gather_dist launch beside
+    them; no beam_search launch where not.  Returns fn's result and the
+    number of calls."""
+    from repro_torch.kernels.beam_merge import ops as bm
+    from repro_torch.kernels.beam_search import ops as bs
+    from repro_torch.kernels.gather_dist import ops as gd
+
+    calls = []
+    with range_search_calls(calls):
+        out = count(fn, *args, **kwargs)
+    log(f"  {what}: {len(calls)} range_search calls; launches: beam_search "
+        f"{bs.launches}, beam_merge {bm.launches}, gather_dist "
+        f"{gd.launches}")
+    expect_launches("beam_search", bs.launches, len(calls) if kernel else 0,
+                    f"range_search calls ({what})")
+    if kernel:
+        expect_launches("beam_merge", bm.launches, 0, what)
+        expect_launches("gather_dist", gd.launches, 0, what)
+    return out, len(calls)
+
+
 def extend_blocks(inserted: int) -> int:
     """Extend-block passes of a build that inserted ``inserted`` vertices
     in waves of WAVE: one per EXTEND_BLOCK vertices of each wave."""
@@ -830,6 +1047,7 @@ def build_phase(n: int, n_query: int, device, count=None, *,
     Returns the index, the base vectors, the queries and the launches of
     ``mrng_occlusion`` in the build."""
     from repro_torch.configs.deg import DEG_PAPER_CONFIGS
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.build import build_deg
     from repro_torch.core.invariants import check_table1
     from repro_torch.data.synthetic import make_dataset
@@ -842,12 +1060,20 @@ def build_phase(n: int, n_query: int, device, count=None, *,
         f"in {time.perf_counter() - t0:.2f} s")
     params = dataclasses.replace(DEG_PAPER_CONFIGS["audio"],
                                  device_extend=device_extend)
-    assert params.k_ext == K_EXT, "phase 2 checks the wave shape at K_EXT"
+    assert (params.k_ext, params.eps_ext) == (K_EXT, EPS_EXT), \
+        "phase 2 checks the wave shape at K_EXT and EPS_EXT"
     assert params.extend_block == EXTEND_BLOCK
     t0 = time.perf_counter()
-    idx = count(build_deg, base, params, wave_size=WAVE, device=device)
+    idx, n_calls = count_searches(
+        count, f"{tag} build", build_deg, base, params, wave_size=WAVE,
+        device=device,
+        kernel=search_kernel_eligible(base, "l2", "composed", device))
     sync()
     secs = time.perf_counter() - t0
+    waves = -(-(n - params.degree - 1) // WAVE)
+    if n_calls != waves:
+        raise AssertionError(f"{n_calls} range_search calls for {waves} "
+                             "insert waves")
     occ = occ_ops.launches
     st = idx.build_stats
     inserted = st["vertices"]
@@ -917,6 +1143,7 @@ def plain_kernels():
     (a CUDA tensor then never reaches a kernel)."""
     from repro_torch.kernels.bag_lookup import ops as bag
     from repro_torch.kernels.beam_merge import ops as bm
+    from repro_torch.kernels.beam_search import ops as bs
     from repro_torch.kernels.fused_hop import ops as fh
     from repro_torch.kernels.gather_dist import ops as gd
     from repro_torch.kernels.gather_dist_q import ops as gdq
@@ -925,7 +1152,8 @@ def plain_kernels():
     from repro_torch.kernels.pq_adc import ops as adc
 
     saved = [(m, name, getattr(m, name)) for m, name in
-             ((bm, "beam_merge"), (fh, "fused_hop"), (gd, "gather_dist"),
+             ((bs, "beam_search"), (bm, "beam_merge"), (fh, "fused_hop"),
+              (gd, "gather_dist"),
               (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
               (adc, "pq_adc"), (l2, "l2_topk"), (bag, "bag_lookup"))]
     try:
@@ -1006,6 +1234,7 @@ def serve_phase(idx, base, queries, device, count=None, *, k=K, eps=EPS,
     ``ground_truth`` unless given).  Only the ground truth and the timed
     loops go through ``count``."""
     from repro_torch.configs.deg import SEARCH_PRESETS
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.metrics import recall_at_k
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
@@ -1017,8 +1246,15 @@ def serve_phase(idx, base, queries, device, count=None, *, k=K, eps=EPS,
         _serve(idx, queries[:batch], preset, k, eps, batch)       # warm-up
         sync()
         t0 = time.perf_counter()
-        ids, hops, evals = count(_serve, idx, queries, preset, k, eps, batch)
+        (ids, hops, evals), n_calls = count_searches(
+            count, f"{tag} serve {name}", _serve, idx, queries, preset, k,
+            eps, batch, kernel=search_kernel_eligible(
+                idx._dev_vectors, "l2", preset.hop_backend, device))
         secs = time.perf_counter() - t0
+        if n_calls != -(-len(queries) // batch):
+            raise AssertionError(f"{n_calls} range_search calls for "
+                                 f"{len(queries)} queries in batches of "
+                                 f"{batch}")
         rec = recall_at_k(ids, gt)
         log(f"{tag} serve {name}: {len(queries)} queries in {secs:.3f} s = "
             f"{len(queries) / secs:.1f} QPS, recall@{k} {rec:.4f}, "
@@ -1094,8 +1330,12 @@ def quant_serve_phase(idx, queries, gt, count=None, *, k=K, batch=BATCH,
     bytes written out and against the bytes the store's tensors hold,
     every query timed in batches (QPS, recall@k against
     the exact k-NN, hops and evals, through ``count``), and the idle share
-    of one batch."""
+    of one batch; then the first N_COMPARE queries under "multi-e4-fused"
+    (through ``count``), which over a compressed store runs the composed
+    hop on the host loop: the fp16 store's hop is where gather_dist stays
+    on the main path."""
     from repro_torch.configs.deg import QUANT_PRESETS, SEARCH_PRESETS
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.metrics import recall_at_k
     from repro_torch.quant.store import as_store
 
@@ -1128,8 +1368,11 @@ def quant_serve_phase(idx, queries, gt, count=None, *, k=K, batch=BATCH,
         _serve(idx, queries[:batch], classic, k, EPS, batch, quant)  # warm-up
         sync()
         t0 = time.perf_counter()
-        ids, hops, evals = count(_serve, idx, queries, classic, k, EPS,
-                                 batch, quant)
+        (ids, hops, evals), _ = count_searches(
+            count, f"phase4b serve {name}", _serve, idx, queries, classic, k,
+            EPS, batch, quant,
+            kernel=search_kernel_eligible(store, "l2", classic.hop_backend,
+                                          store.data.device))
         secs = time.perf_counter() - t0
         rec = recall_at_k(ids, gt)
         eps = EPS if quant.eps is None else quant.eps
@@ -1144,9 +1387,15 @@ def quant_serve_phase(idx, queries, gt, count=None, *, k=K, batch=BATCH,
                                   batch, quant),
                    secs * 1e3 * batch / len(queries),
                    f"phase4b {name} one batch of {batch}")
+        e4 = SEARCH_PRESETS["multi-e4-fused"]
+        (e4_ids, _, _), _ = count_searches(
+            count, f"phase4b serve {name} multi-e4-fused", _serve, idx,
+            queries[:N_COMPARE], e4, k, EPS, batch, quant,
+            kernel=search_kernel_eligible(store, "l2", e4.hop_backend,
+                                          store.data.device))
         out[name] = dict(ids=ids, recall=rec, qps=len(queries) / secs,
                          hops=float(hops.mean()), evals=float(evals.mean()),
-                         encode_s=enc, fit_s=sum(fit_s))
+                         encode_s=enc, fit_s=sum(fit_s), e4_ids=e4_ids)
     return out
 
 
@@ -1182,17 +1431,22 @@ def refine_phase(idx, queries, gt, device, count=None, *,
     """Alg. 5 over ``vertices`` vertices drawn from seed 0, under the
     index's k_opt / eps_opt / i_opt; then "classic" served again on the
     refined graph against the same exact k-NN."""
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.invariants import check_table1
     from repro_torch.core.metrics import average_neighbor_distance
     from repro_torch.kernels.mrng_occlusion import ops as occ_ops
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
     p = idx.params
-    assert p.k_opt == K_OPT, "phase 2 checks refinement's shapes at K_OPT"
+    assert (p.k_opt, p.eps_opt) == (K_OPT, EPS_OPT), \
+        "phase 2 checks refinement's shapes at K_OPT and EPS_OPT"
     nd0 = average_neighbor_distance(idx.builder)
     tasks0 = idx.refine_stats["edge_tasks"]
     t0 = time.perf_counter()
-    improved = count(idx.refine, vertices, seed=0)
+    improved, _ = count_searches(
+        count, "phase5 refine", idx.refine, vertices, seed=0,
+        kernel=search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                      device))
     sync()
     secs = time.perf_counter() - t0
     occ = occ_ops.launches
@@ -1276,6 +1530,7 @@ def baselines_phase(base, queries, device, count=None, *, n=N_HOST,
     from repro_torch.configs.deg import DEG_PAPER_CONFIGS
     from repro_torch.core.baselines import (NSWIndex, build_knng,
                                             random_regular_index)
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.invariants import check_table1
     from repro_torch.core.metrics import recall_at_k
     from repro_torch.core.search import search_graph
@@ -1288,9 +1543,13 @@ def baselines_phase(base, queries, device, count=None, *, n=N_HOST,
     params = DEG_PAPER_CONFIGS["audio"]
     built = {}
 
+    kernel = search_kernel_eligible(
+        torch.as_tensor(sub[:1], device=device), "l2", "composed", device)
+
     def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
-        out = count(fn, *a, **kw)
+        out, _ = count_searches(count, f"phase4c {name} build", fn, *a,
+                                kernel=kernel, **kw)
         sync()
         built[name] = time.perf_counter() - t0
         return out
@@ -1324,7 +1583,9 @@ def baselines_phase(base, queries, device, count=None, *, n=N_HOST,
         _batches(search, qs[:batch], batch)                     # warm-up
         sync()
         t0 = time.perf_counter()
-        ids, hops, evals = count(_batches, search, qs, batch)
+        (ids, hops, evals), _ = count_searches(
+            count, f"phase4c {name} serve", _batches, search, qs, batch,
+            kernel=kernel)
         secs = time.perf_counter() - t0
         rec = recall_at_k(ids, truth)
         log(f"phase4c {name} ({what}): built in {built[name]:.2f} s; "
@@ -1347,6 +1608,7 @@ def delete_phase(idx, queries, device, count=None, *,
     holds.  Then the ground truth over the remaining rows and "classic"
     served again: recall@10 >= RECALL_FLOOR, and no returned id names a
     row equal to a deleted vector."""
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.invariants import check_table1
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
@@ -1354,7 +1616,10 @@ def delete_phase(idx, queries, device, count=None, *,
     ids = np.random.default_rng(0).choice(n0, size=n_delete, replace=False)
     gone = {row.tobytes() for row in idx.vectors[ids]}
     t0 = time.perf_counter()
-    done = count(idx.remove, ids)
+    done, _ = count_searches(
+        count, "phase7 delete", idx.remove, ids,
+        kernel=search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                      device))
     sync()
     secs = time.perf_counter() - t0
     log(f"phase7 delete: {done} of {n_delete} vertices in {secs:.2f} s = "
@@ -1415,30 +1680,25 @@ def _agree(what: str, ids: np.ndarray, want: np.ndarray) -> float:
 
 
 def compare_quant_phase(idx, queries, gt, quant_served, *, k=K, batch=BATCH,
-                        n_compare=512,
                         search_presets=("classic", "multi-e4-fused")):
-    """Each compressed store's first ``n_compare`` queries under each
+    """Each compressed store's first N_COMPARE queries under each
     search preset with the kernels and through the plain versions: ids
-    equal on AGREE_FLOOR of the slots, recall within RECALL_GAP.  The
-    classic kernel run is phase 4b's; the E=4 preset (which over a
-    compressed store runs the composed hop) runs here with the kernels,
-    uncounted."""
+    equal on AGREE_FLOOR of the slots, recall within RECALL_GAP.  Both
+    kernel runs are phase 4b's (the E=4 preset over a compressed store
+    runs the composed hop on the host loop)."""
     from repro_torch.configs.deg import QUANT_PRESETS, SEARCH_PRESETS
     from repro_torch.core.metrics import recall_at_k
 
-    gt_ids = gt[:n_compare]
-    qs = queries[:n_compare]
+    gt_ids = gt[:N_COMPARE]
+    qs = queries[:N_COMPARE]
     for name, res in quant_served.items():
         quant = QUANT_PRESETS[name]
         for sp in search_presets:
             preset = SEARCH_PRESETS[sp]
-            if sp == "classic":
-                kern = res["ids"][:n_compare]
-            else:
-                kern, _, _ = _serve(idx, qs, preset, k, EPS, batch, quant)
+            kern = res["ids" if sp == "classic" else "e4_ids"][:N_COMPARE]
             with plain_kernels():
                 ids, _, _ = _serve(idx, qs, preset, k, EPS, batch, quant)
-            _agree(f"{name} {sp}, {n_compare} queries", ids, kern)
+            _agree(f"{name} {sp}, {len(qs)} queries", ids, kern)
             r_plain, r_kern = recall_at_k(ids, gt_ids), recall_at_k(kern,
                                                                     gt_ids)
             log(f"  recall@{k} {r_plain:.4f} plain vs {r_kern:.4f} kernels")
@@ -1448,7 +1708,7 @@ def compare_quant_phase(idx, queries, gt, quant_served, *, k=K, batch=BATCH,
 
 
 def compare_plain_phase(idx, queries, served, wave_ids, explore_calls, *,
-                        k=K, eps=EPS, batch=BATCH, n_compare=512):
+                        k=K, eps=EPS, batch=BATCH, n_compare=N_COMPARE):
     """The main path again through the plain versions on the card: the
     first ``n_compare`` queries of each preset, one insert wave's search,
     and every exploration hop.  Ids must agree on AGREE_FLOOR of the
@@ -1803,6 +2063,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.kernels import _build
 
     device = "cuda"
@@ -1848,7 +2109,10 @@ def main(argv=None) -> int:
                 tag="phase3 host-extension")
     stamp("phase 3")
     served = serve_phase(idx, base, queries, device, count)
-    explore_calls = count(explore_phase, idx)
+    explore_calls, _ = count_searches(
+        count, "phase4 explore", explore_phase, idx,
+        kernel=search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                      device))
     stamp("phase 4")
     quant_served = quant_serve_phase(idx, queries, served["gt"], count)
     stamp("phase 4b")
@@ -1866,6 +2130,10 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
+    # a float32 hop runs in beam_search or fused_hop: gather_dist is left
+    # to the fp16 store under the fused preset
+    expect_launches("gather_dist", launches["gather_dist"],
+                    launches["gather_dist[fp16]"], "launches on fp16 rows")
     compare_extend_phase(device)
     stamp("phase 6, build part")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -17,6 +17,15 @@ Queries (``core/search.py``), the insert-wave candidate searches (Alg. 3,
   visited filter, vector gather, distance, compaction) in the
   ``fused_hop`` kernel; ``"composed"`` scores the hop with ``gather_dist``.
   Both merge with ``beam_merge``, and both give the same results.
+* on the card, :func:`search_kernel_eligible` picks the configurations
+  whose whole search runs as one launch of the ``beam_search`` kernel in
+  place of the host loop: a CUDA tensor, the composed hop, a float32 or
+  fp16 store and the l2 or sqeuclidean metric, at a beam, exclude list
+  and visited table that fit one block's shared memory.  The host loop
+  keeps the rest (the sq8 and pq stores, the ip and cos metrics, the fused
+  hop, and a beam of thousands of entries or exclude ids).
+  The choice is made from the configuration alone, before the search;
+  both give the same final state.
 
 Exploration queries (Sec. 6.7) are native: ``exclude`` removes vertices
 from the result list (and the radius) while navigation still passes
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.beam_merge import ops as bm_ops
+from repro_torch.kernels.beam_search import ops as bs_ops
 from repro_torch.kernels.fused_hop import ops as fh_ops
 from repro_torch.quant.store import as_store
 
@@ -281,6 +291,29 @@ def extract(state: BeamState, k: int, *, dedup: bool = False):
 # ---------------------------------------------------------------------------
 # the composed program
 # ---------------------------------------------------------------------------
+def search_kernel_eligible(vectors, metric: str, hop_backend: str, device,
+                           *, beam_width: int = 0, degree: int = 0,
+                           expand_width: int = 1, n_exclude: int = 0,
+                           visited_size: int = 0) -> bool:
+    """Does :func:`beam_search` run as one ``beam_search`` kernel launch?
+    On a CUDA device, for the composed hop over a float32 or fp16 store
+    under the l2 or sqeuclidean metric, when one lane's beam of
+    ``beam_width`` entries, its ``expand_width`` x ``degree`` candidates,
+    its ``n_exclude`` excluded ids and its ``visited_size``-slot table fit
+    the shared memory of one block; everything else runs the host loop.
+    The shapes default to an empty beam, for a caller that asks about the
+    configuration alone."""
+    store = as_store(vectors)
+    return (torch.device(device).type == "cuda"
+            and hop_backend == "composed"
+            and store.codec in ("float32", "fp16")
+            and metric in ("l2", "sqeuclidean")
+            and bs_ops.smem_bytes(store.data.shape[1], beam_width,
+                                  expand_width * degree, n_exclude,
+                                  visited_size, expand_width)
+            <= bs_ops.MAX_SMEM)
+
+
 def beam_search(graph: DEGraph, vectors, queries: torch.Tensor,
                 seed_ids: torch.Tensor, *, k: int, eps: float,
                 beam_width: int, max_hops: int, metric: str = "l2",
@@ -290,11 +323,13 @@ def beam_search(graph: DEGraph, vectors, queries: torch.Tensor,
                 hop_budget: Optional[torch.Tensor] = None) -> BeamState:
     """init -> expand until no lane is alive or ``max_hops`` -> final state.
 
-    The loop runs on the host and asks the device whether any lane is alive
-    once every ``ALIVE_CHECK_EVERY`` hops, never past ``max_hops``.  A dead
-    lane is a fixed point of :func:`expand` (no active selection, and
-    merging all-inf candidates keeps the beam), so the extra hops change no
-    result."""
+    Where :func:`search_kernel_eligible` holds, one ``beam_search`` launch
+    runs every lane's hops to its own end.  Otherwise the loop runs on the
+    host and asks the device whether any lane is alive once every
+    ``ALIVE_CHECK_EVERY`` hops, never past ``max_hops``.  A dead lane is a
+    fixed point of :func:`expand` (no active selection, and merging
+    all-inf candidates keeps the beam), so the extra hops change no result
+    and both give the same state."""
     if expand_width < 1:
         raise ValueError(f"expand_width must be >= 1, got {expand_width}")
     if hop_backend not in HOP_BACKENDS:
@@ -310,6 +345,34 @@ def beam_search(graph: DEGraph, vectors, queries: torch.Tensor,
     state = init(vectors, queries, seed_ids, exclude, graph.n,
                  beam_width=beam_width, metric=metric,
                  visited_size=visited_size)
+    if search_kernel_eligible(vectors, metric, hop_backend, queries.device,
+                              beam_width=state.width,
+                              degree=graph.adjacency.shape[1],
+                              expand_width=expand_width,
+                              n_exclude=exclude.shape[1],
+                              visited_size=(0 if state.visited is None
+                                            else state.visited.shape[1])):
+        store = as_store(vectors)
+        return BeamState(*bs_ops.beam_search(
+            graph.adjacency, store.data, queries, exclude, state.ids,
+            state.dists, state.checked, state.excluded, state.hops,
+            state.evals, state.visited, n_valid=graph.n, k=k,
+            eps1=_eps1(eps), expand_width=expand_width, max_hops=max_hops,
+            squared=metric == "sqeuclidean", hop_budget=hop_budget))
+    return host_loop(state, graph, vectors, queries, exclude, k=k, eps=eps,
+                     max_hops=max_hops, metric=metric,
+                     expand_width=expand_width, hop_backend=hop_backend,
+                     hop_budget=hop_budget)
+
+
+def host_loop(state: BeamState, graph: DEGraph, vectors,
+              queries: torch.Tensor, exclude: torch.Tensor, *, k: int,
+              eps: float, max_hops: int, metric: str, expand_width: int,
+              hop_backend: str,
+              hop_budget: Optional[torch.Tensor] = None) -> BeamState:
+    """The loop of :func:`beam_search` on the host, from an initialised
+    beam: :func:`expand` in steps of ``ALIVE_CHECK_EVERY`` hops, then one
+    read of "any lane alive?", never past ``max_hops``."""
     it = 0
     while it < max_hops:
         for _ in range(min(ALIVE_CHECK_EVERY, max_hops - it)):

@@ -25,12 +25,6 @@
 
 namespace {
 
-__device__ __forceinline__ bool precedes(float a, int ra, float b, int rb) {
-  const bool na = isnan(a), nb = isnan(b);
-  if (na || nb) return (na && nb) ? ra < rb : nb;
-  return a < b || (a == b && ra < rb);
-}
-
 __global__ void beam_merge_kernel(
     const float* __restrict__ beam_d, const int* __restrict__ beam_i,
     const uint8_t* __restrict__ beam_c, const uint8_t* __restrict__ beam_x,
@@ -48,7 +42,7 @@ __global__ void beam_merge_kernel(
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
     const float key = keys[i];
     int pos = 0;
-    for (int j = 0; j < T; ++j) pos += precedes(keys[j], j, key, i);
+    for (int j = 0; j < T; ++j) pos += repro::precedes(keys[j], j, key, i);
     if (pos >= L) continue;
     const long long o = bo + pos;
     out_d[o] = key;

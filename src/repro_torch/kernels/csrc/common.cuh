@@ -1,8 +1,14 @@
-// Shared by every kernel library of the port (see kernels/_build.py).
+// Shared by every kernel library of the port (see kernels/_build.py): the
+// row distances of gather_dist, fused_hop and beam_search, the merge order
+// of beam_merge and beam_search, and the visited set's probe hash.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -16,9 +22,23 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
+// A load of the query side of a distance: through the read-only cache from
+// device memory, or plainly from shared memory (kShared), where __ldg
+// does not reach.  Both give the same value, so the sums below do not
+// depend on where the query lies.
+template <bool kShared, typename V>
+__device__ __forceinline__ V load_q(const V* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
 // Squared l2 distance between two rows of m floats, computed by one warp;
 // every lane returns the full sum.  vec4 selects 16-byte loads (m % 4 == 0
-// and both rows 16-byte aligned).
+// and both rows 16-byte aligned).  b lies in shared memory if kSharedB.
+template <bool kSharedB = false>
 __device__ __forceinline__ float warp_sq_l2(const float* __restrict__ a,
                                             const float* __restrict__ b,
                                             int m, bool vec4, int lane) {
@@ -28,7 +48,7 @@ __device__ __forceinline__ float warp_sq_l2(const float* __restrict__ a,
     const float4* b4 = reinterpret_cast<const float4*>(b);
     for (int i = lane; i < (m >> 2); i += 32) {
       float4 x = __ldg(a4 + i);
-      float4 y = __ldg(b4 + i);
+      float4 y = load_q<kSharedB>(b4 + i);
       float dx = x.x - y.x, dy = x.y - y.y, dz = x.z - y.z, dw = x.w - y.w;
       s = fmaf(dx, dx, s);
       s = fmaf(dy, dy, s);
@@ -37,16 +57,97 @@ __device__ __forceinline__ float warp_sq_l2(const float* __restrict__ a,
     }
   } else {
     for (int i = lane; i < m; i += 32) {
-      float dx = __ldg(a + i) - __ldg(b + i);
+      float dx = __ldg(a + i) - load_q<kSharedB>(b + i);
       s = fmaf(dx, dx, s);
     }
   }
   return warp_sum(s);
 }
 
+__device__ __forceinline__ float2 to_f32x2(unsigned w, __half) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+
+__device__ __forceinline__ float2 to_f32x2(unsigned w, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Squared l2 distance between a row of m halves and m query floats, one
+// warp; every lane returns the full sum.  vec selects 16-byte loads
+// (m % 8 == 0 and both rows 16-byte aligned).  q lies in shared memory if
+// kSharedQ.
+template <typename T, bool kSharedQ = false>
+__device__ __forceinline__ float warp_sq_l2_half(const T* __restrict__ row,
+                                                 const float* __restrict__ q,
+                                                 int m, bool vec, int lane) {
+  float s = 0.f;
+  if (vec) {
+    const uint4* r8 = reinterpret_cast<const uint4*>(row);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int i = lane; i < (m >> 3); i += 32) {
+      const uint4 raw = __ldg(r8 + i);
+      const float4 qa = load_q<kSharedQ>(q4 + 2 * i);
+      const float4 qb = load_q<kSharedQ>(q4 + 2 * i + 1);
+      const float2 x0 = to_f32x2(raw.x, T()), x1 = to_f32x2(raw.y, T());
+      const float2 x2 = to_f32x2(raw.z, T()), x3 = to_f32x2(raw.w, T());
+      const float dx[8] = {x0.x - qa.x, x0.y - qa.y, x1.x - qa.z,
+                           x1.y - qa.w, x2.x - qb.x, x2.y - qb.y,
+                           x3.x - qb.z, x3.y - qb.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s = fmaf(dx[k], dx[k], s);
+    }
+  } else {
+    for (int i = lane; i < m; i += 32) {
+      const float dx = to_f32(row[i]) - load_q<kSharedQ>(q + i);
+      s = fmaf(dx, dx, s);
+    }
+  }
+  return warp_sum(s);
+}
+
+// The squared distance of a float32, fp16 or bf16 row to a float32 query,
+// as gather_dist computes it: one device function for every kernel that
+// scores rows, so that their distances agree bit for bit.
+template <bool kSharedQ, typename T>
+__device__ __forceinline__ float row_sq_l2(const T* row, const float* q,
+                                           int m, bool vec, int lane) {
+  if constexpr (std::is_same_v<T, float>) {
+    return warp_sq_l2<kSharedQ>(row, q, m, vec, lane);
+  } else {
+    return warp_sq_l2_half<T, kSharedQ>(row, q, m, vec, lane);
+  }
+}
+
+// Elements of T per 16-byte load: the vec condition is m % per_load == 0.
+template <typename T>
+constexpr int per_load() { return 16 / static_cast<int>(sizeof(T)); }
+
 __device__ __forceinline__ float finish_dist(float s, bool squared) {
   s = fmaxf(s, 0.f);
   return squared ? s : sqrtf(s);
+}
+
+// The total order of a stable ascending sort of keys a at rank ra: by key,
+// then by rank, with NaN after every number.
+__device__ __forceinline__ bool precedes(float a, int ra, float b, int rb) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return (na && nb) ? ra < rb : nb;
+  return a < b || (a == b && ra < rb);
+}
+
+// Slot of id x at probe t in a visited table of mask + 1 slots: the double
+// hash of core/visited.py::probe_positions in native uint32.
+__device__ __forceinline__ unsigned visited_probe(unsigned x, unsigned t,
+                                                  unsigned mask) {
+  const unsigned h1 = x * 2654435761u;           // visited.py _MULT1
+  const unsigned h2 = (x * 0x9E3779B1u) | 1u;    // visited.py _MULT2, odd
+  return (h1 + t * h2) & mask;
 }
 
 }  // namespace repro

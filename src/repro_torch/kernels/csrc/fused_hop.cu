@@ -31,13 +31,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ unsigned probe(unsigned x, unsigned t,
-                                          unsigned mask) {
-  const unsigned h1 = x * 2654435761u;           // visited.py _MULT1
-  const unsigned h2 = (x * 0x9E3779B1u) | 1u;    // visited.py _MULT2, odd
-  return (h1 + t * h2) & mask;
-}
-
 __global__ void __launch_bounds__(kThreads) fused_hop_kernel(
     const int* __restrict__ adjacency, int deg,
     const float* __restrict__ vectors, long long n_rows, int m,
@@ -84,7 +77,8 @@ __global__ void __launch_bounds__(kThreads) fused_hop_kernel(
       const int* row = visited + b * V;
       const unsigned mask = static_cast<unsigned>(V - 1);
       for (int t = 0; t < n_probes && !drop; ++t)
-        drop = row[probe(static_cast<unsigned>(nid), t, mask)] == nid;
+        drop = row[repro::visited_probe(static_cast<unsigned>(nid), t,
+                                        mask)] == nid;
     }
     if (!drop) flag_s[p] |= 2;
   }

@@ -15,69 +15,9 @@
 // in f32 and reduced with warp shuffles.  Rows are never staged in shared
 // memory: each is used once.  Many warps in flight hide the gather
 // latency.  The float32 row of a half store never reaches device memory.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-
 #include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float2 to_f32x2(unsigned w, __half) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&w));
-}
-
-__device__ __forceinline__ float2 to_f32x2(unsigned w, __nv_bfloat16) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
-}
-
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Squared l2 distance between a row of m halves and m query floats, one
-// warp; every lane returns the full sum.  vec selects 16-byte loads
-// (m % 8 == 0 and both rows 16-byte aligned).
-template <typename T>
-__device__ __forceinline__ float warp_sq_l2_half(const T* __restrict__ row,
-                                                 const float* __restrict__ q,
-                                                 int m, bool vec, int lane) {
-  float s = 0.f;
-  if (vec) {
-    const uint4* r8 = reinterpret_cast<const uint4*>(row);
-    const float4* q4 = reinterpret_cast<const float4*>(q);
-    for (int i = lane; i < (m >> 3); i += 32) {
-      const uint4 raw = __ldg(r8 + i);
-      const float4 qa = __ldg(q4 + 2 * i);
-      const float4 qb = __ldg(q4 + 2 * i + 1);
-      const float2 x0 = to_f32x2(raw.x, T()), x1 = to_f32x2(raw.y, T());
-      const float2 x2 = to_f32x2(raw.z, T()), x3 = to_f32x2(raw.w, T());
-      const float dx[8] = {x0.x - qa.x, x0.y - qa.y, x1.x - qa.z,
-                           x1.y - qa.w, x2.x - qb.x, x2.y - qb.y,
-                           x3.x - qb.z, x3.y - qb.w};
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s = fmaf(dx[k], dx[k], s);
-    }
-  } else {
-    for (int i = lane; i < m; i += 32) {
-      const float dx = to_f32(row[i]) - __ldg(q + i);
-      s = fmaf(dx, dx, s);
-    }
-  }
-  return repro::warp_sum(s);
-}
-
-__device__ __forceinline__ float row_sq_l2(const float* row, const float* q,
-                                           int m, bool vec, int lane) {
-  return repro::warp_sq_l2(row, q, m, vec, lane);
-}
-
-template <typename T>
-__device__ __forceinline__ float row_sq_l2(const T* row, const float* q,
-                                           int m, bool vec, int lane) {
-  return warp_sq_l2_half(row, q, m, vec, lane);
-}
 
 template <typename T>
 __global__ void gather_dist_kernel(const T* __restrict__ vectors,
@@ -94,14 +34,10 @@ __global__ void gather_dist_kernel(const T* __restrict__ vectors,
   long long id = ids[pair];
   id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
   const long long b = pair / d;
-  const float s = row_sq_l2(vectors + id * m, queries + b * m, m, vec != 0,
-                            lane);
+  const float s = repro::row_sq_l2<false>(vectors + id * m, queries + b * m,
+                                          m, vec != 0, lane);
   if (lane == 0) out[pair] = repro::finish_dist(s, squared != 0);
 }
-
-// Elements of T per 16-byte load.
-template <typename T>
-constexpr int per_load() { return 16 / static_cast<int>(sizeof(T)); }
 
 template <typename T>
 int launch(const void* vectors, long long n_rows, int m, const void* ids,
@@ -109,7 +45,7 @@ int launch(const void* vectors, long long n_rows, int m, const void* ids,
            void* stream) {
   const long long n_pairs = static_cast<long long>(B) * d;
   if (n_pairs == 0) return 0;
-  const int vec = (m % per_load<T>() == 0) &&
+  const int vec = (m % repro::per_load<T>() == 0) &&
                   ((reinterpret_cast<uintptr_t>(vectors) |
                     reinterpret_cast<uintptr_t>(queries)) % 16 == 0);
   const int threads = 256;

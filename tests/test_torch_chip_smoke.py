@@ -4,7 +4,9 @@ plain version.  The card-only pieces (synchronisation, the profiler and
 the CUDA-graph timer ``time_call``) are replaced, and each launch count
 the script expects must read 0 here, since a CPU tensor never reaches a
 kernel."""
+import functools
 import os
+import re
 import sys
 
 import numpy as np
@@ -166,6 +168,75 @@ def test_phase2_compressed_checks(rehearsal, check, kw, shape):
     assert r["bound_ms"] > 0
 
 
+@pytest.mark.parametrize("kw, shape", [
+    (dict(B=cs.BATCH, L=30), "serve: B=256 L=30 E=1 k=10 eps=0.1 d=20 m=192 "
+                             "f32 V=0 X=0"),
+    (dict(B=16, L=30, rows="f16", what="serve fp16"), "f16 V=0"),
+    (dict(B=16, L=30, E=2, V=1024, what="visited"), "E=2 k=10"),
+    (dict(B=8, L=42, X=32, what="explore"), "explore: B=8 L=42"),
+    (dict(B=1, L=40, k=20, eps=0.001, seeds=2, what="refine live"),
+     "refine live: B=1 L=40 E=1 k=20 eps=0.001"),
+])
+def test_phase2_beam_search_checks(rehearsal, kw, shape):
+    """The whole search's check on the CPU: the wrapper takes its plain
+    version, so the kernel side, the host loop and the plain version all
+    agree, and no beam_search launch is counted."""
+    from repro_torch.kernels.beam_search import ops
+
+    inp = cs.phase2_inputs("cpu", N=3000)
+    before = ops.launches
+    r = cs.check_beam_search(inp, "cpu", **kw)
+    assert ops.launches == before == 0
+    assert r["name"] == "beam_search" and shape in r["shape"]
+    assert "on 100.0000% of slots" in r["shape"]
+    assert f"hops and evals on {kw['B']} of {kw['B']} lanes" in r["shape"]
+    assert r["max_abs_err"] == 0.0 and r["tl"] is None
+    # the bound counts distinct rows: all lanes together read at most the
+    # n_valid rows of the graph, so the 256 lanes, which share them, are
+    # bound by their scoring operations here
+    rows = int(re.search(r"(\d+) distinct rows", r["shape"]).group(1))
+    assert 0 < rows <= inp["n_valid"]
+    assert r["bound_ms"] > 0 and r["bound_by"] == (
+        "operations" if kw["B"] == cs.BATCH else "bytes")
+
+
+def test_beam_search_is_counted_and_routed_to_plain():
+    from repro_torch.kernels.beam_search import ops
+
+    assert cs.launch_counters()["beam_search"] == (ops, "launches")
+    fn = ops.beam_search
+    with cs.plain_kernels():
+        assert ops.beam_search.keywords == {"impl": "ref"}
+    assert ops.beam_search is fn
+    assert cs.KERNELS["beam_search"].startswith(
+        "src/repro/kernels/beam_merge/beam_merge.py:189")
+
+
+def test_count_searches_counts_range_search_calls(rehearsal, served):
+    """Every search of a counted piece goes through range_search once a
+    batch; on the CPU no kernel takes it, so none launches."""
+    from repro_torch.core import beam
+
+    idx, queries, _, _ = served
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    count = functools.partial(cs.counted, ops, launches)
+    rule = functools.partial(beam.search_kernel_eligible, idx._dev_vectors,
+                             "l2")
+    assert not rule("composed", "cpu")
+    assert rule("composed", "cuda") and not rule("fused", "cuda")
+    _, n = cs.count_searches(count, "serve", cs._batches,
+                             lambda q: idx.search_batch(q, k=cs.K),
+                             queries, 16, kernel=False)
+    assert n == -(-len(queries) // 16)
+    _, n = cs.count_searches(count, "explore", cs.explore_phase, idx,
+                             sessions=2, hops=3, kernel=False)
+    assert n == 3
+    assert all(v == 0 for v in launches.values()), launches
+    from repro_torch.core import build, search
+    assert build.range_search is search.range_search   # restored
+
+
 def test_store_bytes_at_audio_size():
     assert cs.expected_store_bytes(cs.N_AUDIO, cs.DIM) == cs.AUDIO_STORE_BYTES
 
@@ -217,8 +288,7 @@ def test_compare_then_refine(served):
     assert all(n == 0 for n in launches.values()), launches  # CPU: plain
     cs.compare_plain_phase(idx, queries, out, ids, calls, batch=BATCH,
                            n_compare=BATCH)
-    cs.compare_quant_phase(idx, queries, out["gt"], quant, batch=BATCH,
-                           n_compare=BATCH)
+    cs.compare_quant_phase(idx, queries, out["gt"], quant, batch=BATCH)
     adj0 = idx.builder.adjacency.copy()
     refined = cs.refine_phase(idx, queries, out["gt"], "cpu", vertices=16)
     assert idx.refine_stats["vertices"] == 16
