@@ -15,15 +15,17 @@ Queries (``core/search.py``), the insert-wave candidate searches (Alg. 3,
   filter (``visited_size > 0``);
 * ``hop_backend="fused"`` runs the whole hop body (adjacency gather,
   visited filter, vector gather, distance, compaction) in the
-  ``fused_hop`` kernel; ``"composed"`` scores the hop with ``gather_dist``.
-  Both merge with ``beam_merge``, and both give the same results.
+  ``fused_hop`` kernel; ``"composed"`` scores the hop with ``gather_dist``
+  (``gather_dist_q`` or ``pq_adc`` over the sq8 or pq store).  Both merge
+  with ``beam_merge``, and both give the same results.
 * on the card, :func:`search_kernel_eligible` picks the configurations
   whose whole search runs as one launch of the ``beam_search`` kernel in
-  place of the host loop: a CUDA tensor, the composed hop, a float32 or
-  fp16 store and the l2 or sqeuclidean metric, at a beam, exclude list
-  and visited table that fit one block's shared memory.  The host loop
-  keeps the rest (the sq8 and pq stores, the ip and cos metrics, the fused
-  hop, and a beam of thousands of entries or exclude ids).
+  place of the host loop: a CUDA tensor, a float32, fp16 or pq store and
+  the l2 or sqeuclidean metric, at a beam, exclude list, visited table
+  and pq table that fit one block's shared memory.  Either hop backend:
+  the fused hop is the composed hop with the visited filter, and the
+  kernel runs that.  The host loop keeps the rest: the sq8 store, the ip
+  and cos metrics, and a beam of thousands of entries or exclude ids.
   The choice is made from the configuration alone, before the search;
   both give the same final state.
 
@@ -45,6 +47,7 @@ import torch
 from repro_torch.kernels.beam_merge import ops as bm_ops
 from repro_torch.kernels.beam_search import ops as bs_ops
 from repro_torch.kernels.fused_hop import ops as fh_ops
+from repro_torch.kernels.pq_adc import ops as pq_ops
 from repro_torch.quant.store import as_store
 
 from . import visited as visited_set
@@ -296,21 +299,24 @@ def search_kernel_eligible(vectors, metric: str, hop_backend: str, device,
                            expand_width: int = 1, n_exclude: int = 0,
                            visited_size: int = 0) -> bool:
     """Does :func:`beam_search` run as one ``beam_search`` kernel launch?
-    On a CUDA device, for the composed hop over a float32 or fp16 store
-    under the l2 or sqeuclidean metric, when one lane's beam of
-    ``beam_width`` entries, its ``expand_width`` x ``degree`` candidates,
-    its ``n_exclude`` excluded ids and its ``visited_size``-slot table fit
-    the shared memory of one block; everything else runs the host loop.
-    The shapes default to an empty beam, for a caller that asks about the
-    configuration alone."""
+    On a CUDA device, for either hop backend over a float32, fp16 or pq
+    store (of at most ``MAX_SUBSPACES`` subspaces) under the l2 or
+    sqeuclidean metric, when one lane's beam of ``beam_width`` entries, its
+    ``expand_width`` x ``degree`` candidates, its ``n_exclude`` excluded
+    ids, its ``visited_size``-slot table and the pq store's sub-distance
+    table fit the shared memory of one block; everything else runs the
+    host loop.  The shapes default to an empty beam, for a caller that
+    asks about the configuration alone."""
     store = as_store(vectors)
+    m_sub = store.data.shape[1] if store.codec == "pq" else 0
     return (torch.device(device).type == "cuda"
-            and hop_backend == "composed"
-            and store.codec in ("float32", "fp16")
+            and hop_backend in HOP_BACKENDS
+            and store.codec in ("float32", "fp16", "pq")
             and metric in ("l2", "sqeuclidean")
-            and bs_ops.smem_bytes(store.data.shape[1], beam_width,
+            and m_sub <= pq_ops.MAX_SUBSPACES
+            and bs_ops.smem_bytes(store.dim, beam_width,
                                   expand_width * degree, n_exclude,
-                                  visited_size, expand_width)
+                                  visited_size, expand_width, m_sub)
             <= bs_ops.MAX_SMEM)
 
 
@@ -358,7 +364,8 @@ def beam_search(graph: DEGraph, vectors, queries: torch.Tensor,
             state.dists, state.checked, state.excluded, state.hops,
             state.evals, state.visited, n_valid=graph.n, k=k,
             eps1=_eps1(eps), expand_width=expand_width, max_hops=max_hops,
-            squared=metric == "sqeuclidean", hop_budget=hop_budget))
+            squared=metric == "sqeuclidean", hop_budget=hop_budget,
+            codebooks=store.codebooks))
     return host_loop(state, graph, vectors, queries, exclude, k=k, eps=eps,
                      max_hops=max_hops, metric=metric,
                      expand_width=expand_width, hop_backend=hop_backend,

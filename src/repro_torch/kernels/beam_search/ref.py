@@ -5,12 +5,14 @@ from an initialised beam to the final one.
 The loop is self-contained: it repeats radius, selection of the E first
 unchecked entries, adjacency gather, dedup (the beam broadcast, or the
 visited set's probes; the first occurrence when E > 1), scoring with
-``gather_dist_ref``, the visited insert and the merge with
-``beam_merge_ref``.  Each lane runs until its own death (a hop without an
-active selection, after which the lane is frozen) or ``max_hops``; the lanes
-run side by side, and the host asks whether any lane still lives every
-``ALIVE_CHECK_EVERY`` hops.  A dead lane's hop would change nothing, so the
-result is the lock-step loop's.
+``gather_dist_ref`` (over the pq store's code rows, the table sum of
+``pq_adc_ref`` from each lane's table, built once a search as the kernel
+builds it: the values ``pq_adc_ref`` gives on every hop), the visited
+insert and the merge with ``beam_merge_ref``.  Each lane runs until its
+own death (a hop without an active selection, after which the lane is
+frozen) or ``max_hops``; the lanes run side by side, and the host asks
+whether any lane still lives every ``ALIVE_CHECK_EVERY`` hops.  A dead
+lane's hop would change nothing, so the result is the lock-step loop's.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import torch
 from repro_torch.core import visited as visited_set
 from repro_torch.kernels.beam_merge.ref import beam_merge_ref
 from repro_torch.kernels.gather_dist.ref import gather_dist_ref
+from repro_torch.kernels.pq_adc.ref import pq_lut_sum_ref
+from repro_torch.quant.pq import adc_lut
 
 INVALID = -1
 _INF = float("inf")
@@ -49,7 +53,8 @@ def beam_search_ref(adjacency, rows, queries, exclude, ids, dists, checked,
                     excluded, hops, evals, visited=None, *, n_valid: int,
                     k: int, eps1: float, expand_width: int, max_hops: int,
                     squared: bool = False,
-                    hop_budget: Optional[torch.Tensor] = None):
+                    hop_budget: Optional[torch.Tensor] = None,
+                    codebooks: Optional[torch.Tensor] = None):
     """The search from an initialised beam; see ``ops.beam_search`` for
     the arguments.  Returns (ids, dists, checked, excluded, hops, evals,
     visited)."""
@@ -58,6 +63,7 @@ def beam_search_ref(adjacency, rows, queries, exclude, ids, dists, checked,
     n_adj, d = adjacency.shape
     lane_pos = torch.arange(L, device=ids.device)
     live = torch.ones((B,), dtype=torch.bool, device=ids.device)
+    lut = None if codebooks is None else adc_lut(queries, codebooks)
     for it in range(max_hops):
         if it and it % ALIVE_CHECK_EVERY == 0 and not bool(live.any()):
             break
@@ -83,8 +89,10 @@ def beam_search_ref(adjacency, rows, queries, exclude, ids, dists, checked,
             ok = vmask & ~visited_set.contains(visited, flat)
         else:
             ok = vmask & ~(flat[:, :, None] == ids[:, None, :]).any(dim=2)
-        nd = gather_dist_ref(rows, torch.where(ok, flat, 0), queries,
-                             squared=squared)
+        safe = torch.where(ok, flat, 0)
+        nd = (gather_dist_ref(rows, safe, queries, squared=squared)
+              if lut is None else
+              pq_lut_sum_ref(rows, lut, safe, squared=squared))
         keep = ok & (nd <= bound[:, None])
         cand_ids = torch.where(keep, flat, INVALID)
         cand_d = torch.where(keep, nd, _INF)

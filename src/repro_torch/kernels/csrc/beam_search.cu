@@ -1,12 +1,17 @@
 // beam_search: the whole range search of the beam engine (paper Alg. 1,
-// core/beam.py::beam_search with the composed hop) in one launch.  Each
-// query lane repeats the composed hop (radius, select, adjacency gather,
-// dedup, score, visited insert, merge) until it has no active selection
-// or has looped max_hops times, and returns its final beam state.
+// core/beam.py::beam_search) in one launch.  Each query lane repeats the
+// composed hop (radius, select, adjacency gather, dedup, score, visited
+// insert, merge) until it has no active selection or has looped max_hops
+// times, and returns its final beam state.  The rows are float32 or fp16
+// vectors, or the pq store's uint8 code rows scored through the lane's
+// sub-distance table.  The fused preset runs here too: its hop is the
+// composed hop with the visited filter (core/beam.py::expand).
 //
 // Replaces, on this path, the Pallas TPU kernels
-// src/repro/kernels/beam_merge/beam_merge.py::beam_merge_pallas (:189) and
+// src/repro/kernels/beam_merge/beam_merge.py::beam_merge_pallas (:189),
 // src/repro/kernels/gather_dist/gather_dist.py::gather_dist_pallas (:35),
+// src/repro/kernels/pq_adc/pq_adc.py::pq_adc_pallas (:68) and
+// src/repro/kernels/fused_hop/fused_hop.py::fused_hop_pallas (:114),
 // together with the loop around them, src/repro/core/beam.py:351-408
 // (one lax.while_loop of expand and alive).  Contract:
 // kernels/beam_search/ref.py.
@@ -21,7 +26,10 @@
 // Design: one block of 8 warps per lane, for the whole search.  The beam
 // (ids, dists, checked and excluded flags, two copies that the merge
 // writes in turn), the query, the E * d candidates of a hop, the exclude
-// list and the visited table stay in shared memory throughout.  A hop:
+// list, the visited table and, over the pq store, the lane's (m_sub, 256)
+// table stay in shared memory throughout.  The pq table is built once, at
+// the start of the search, by pq_adc's device function; pq_adc rebuilds
+// it on every hop.  A hop:
 //   1. one warp finds the radius (the k-th valid, non-excluded entry) and
 //      the E first unchecked entries with ballots and prefix counts, and
 //      marks the active ones checked;
@@ -31,8 +39,9 @@
 //      beam as it stood at the start of the hop) without the visited set,
 //      the set's probes with it, and the first occurrence when E > 1;
 //   4. one warp per surviving position scores its row with
-//      repro::row_sq_l2 and finish_dist, the device functions of
-//      gather_dist, so distances are bit-identical to the host loop's;
+//      repro::row_sq_l2 (a code row: repro::pq_row_sum) and finish_dist,
+//      the device functions of gather_dist and pq_adc, so distances are
+//      bit-identical to the host loop's;
 //   5. the visited insert of core/visited.py::insert: P rounds of read,
 //      claim by atomicMax (= scatter-amax, since INVALID is -1), re-read,
 //      with a barrier between each, so tables come out bit-identical;
@@ -64,17 +73,19 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 // Byte offsets of the shared-memory sections, each 16-byte aligned.
 // kernels/beam_search/ops.py::smem_bytes repeats this sum.
 struct Layout {
-  size_t misc, q, keys[2], bid[2], nid, ex, vis, sel_pos, sel_id, bchk[2],
-      bexc[2], cflag, sel_act, total;
+  size_t misc, q, lut, keys[2], bid[2], nid, ex, vis, sel_pos, sel_id,
+      bchk[2], bexc[2], cflag, sel_act, total;
 };
 
+// m_sub: the pq store's subspaces, 0 for vector rows (no table).
 __host__ __device__ inline Layout make_layout(int m, int L, int C, int X,
-                                              int V, int E) {
+                                              int V, int E, int m_sub) {
   Layout o;
   size_t at = 0;
   const int T = L + C;
   o.misc = take(at, 16);
   o.q = take(at, 4 * static_cast<size_t>(m));
+  o.lut = take(at, 4 * static_cast<size_t>(m_sub) * repro::kPqStride);
   for (int s = 0; s < 2; ++s) o.keys[s] = take(at, 4 * static_cast<size_t>(T));
   for (int s = 0; s < 2; ++s) o.bid[s] = take(at, 4 * static_cast<size_t>(L));
   o.nid = take(at, 4 * static_cast<size_t>(C));
@@ -96,7 +107,9 @@ struct Params {
   int deg;
   const void* rows;
   long long n_rows;
-  int m;
+  int m;                   // the query's width
+  const float* codebooks;  // (m_sub, 256, dsub), pq rows only
+  int m_sub, dsub;         // m_sub = 0 for vector rows
   const float* queries;
   const int* exclude;
   int X;
@@ -119,17 +132,21 @@ struct Params {
   float eps1;
 };
 
+// Row: float or __half (vector rows of m), or uint8_t (pq code rows of
+// m_sub bytes).
 template <typename Row>
 __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
+  constexpr bool kPq = std::is_same_v<Row, uint8_t>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = p.L, E = p.E, deg = p.deg, C = E * deg, T = L + C;
   const int m = p.m, X = p.X, V = p.V;
-  const Layout lay = make_layout(m, L, C, X, V, E);
+  const Layout lay = make_layout(m, L, C, X, V, E, p.m_sub);
   // misc: [0] the hop's bound r * eps1, [1] its active selections, [2]
   // its scored positions
   float* misc_f = reinterpret_cast<float*>(smem + lay.misc);
   int* misc_i = reinterpret_cast<int*>(smem + lay.misc);
   float* q_s = reinterpret_cast<float*>(smem + lay.q);
+  [[maybe_unused]] float* lut = reinterpret_cast<float*>(smem + lay.lut);
   // the beam's two copies: the merge reads copy cur and writes the other
   // (selected, not indexed, so that no array goes to the stack)
   auto keys = [&](int c) {
@@ -167,6 +184,10 @@ __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
   const bool has_budget = p.budget != nullptr;
   const int budget = has_budget ? p.budget[b] : 0;
   __syncthreads();
+  if constexpr (kPq) {   // the lane's table, once for the whole search
+    repro::pq_build_lut(lut, q_s, p.codebooks, p.m_sub, p.dsub);
+    __syncthreads();
+  }
 
   int cur = 0;
   for (int it = 0; it < p.max_hops; ++it) {
@@ -282,8 +303,12 @@ __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
       const int nid = nid_s[q];
       long long id = nid;
       id = id < 0 ? 0 : (id >= p.n_rows ? p.n_rows - 1 : id);
-      const float s = repro::row_sq_l2<true>(rows + id * m, q_s, m,
-                                             p.vec != 0, lane);
+      float s;
+      if constexpr (kPq) {
+        s = repro::pq_row_sum(lut, rows + id * p.m_sub, p.m_sub, lane);
+      } else {
+        s = repro::row_sq_l2<true>(rows + id * m, q_s, m, p.vec != 0, lane);
+      }
       if (lane == 0) {
         const float nd = repro::finish_dist(s, p.squared != 0);
         if (nd <= bound) {
@@ -391,7 +416,8 @@ __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
 
 template <typename Row>
 int launch(const Params& p, int B, size_t smem, void* stream) {
-  if (smem != make_layout(p.m, p.L, p.E * p.deg, p.X, p.V, p.E).total ||
+  if (smem != make_layout(p.m, p.L, p.E * p.deg, p.X, p.V, p.E,
+                          p.m_sub).total ||
       smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
@@ -410,18 +436,21 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
 
 }  // namespace
 
-// rows: (n_rows, m) float32 or fp16; adjacency (adj_rows, deg) int32;
-// queries (B, m) float32; exclude (B, X) int32; the state in (in_*) and
-// out (out_*): dists (B, L) float32, ids (B, L) int32, checked and
-// excluded (B, L) uint8 (torch.bool), hops and evals (B,) int32, visited
-// (B, V) int32 with V a power of two, or null with V = 0; budget (B,)
-// int32 or null.  smem_bytes must equal the kernel's own layout.
+// rows: (n_rows, m) float32 or fp16, or for beam_search_pq (n_rows, m_sub)
+// uint8 codes with (m_sub, 256, dsub) float32 codebooks, m = m_sub * dsub
+// (codebooks null and m_sub = dsub = 0 otherwise); adjacency (adj_rows,
+// deg) int32; queries (B, m) float32; exclude (B, X) int32; the state in
+// (in_*) and out (out_*): dists (B, L) float32, ids (B, L) int32, checked
+// and excluded (B, L) uint8 (torch.bool), hops and evals (B,) int32,
+// visited (B, V) int32 with V a power of two, or null with V = 0; budget
+// (B,) int32 or null.  smem_bytes must equal the kernel's own layout.
 #define BEAM_SEARCH_ENTRY(NAME, T)                                           \
   REPRO_EXPORT int NAME(                                                     \
       const void* adjacency, long long adj_rows, int deg, const void* rows,  \
-      long long n_rows, int m, const void* queries, const void* exclude,     \
-      int X, const void* in_d, const void* in_i, const void* in_c,           \
-      const void* in_x, const void* in_hops, const void* in_evals,           \
+      long long n_rows, int m, const void* codebooks, int m_sub, int dsub,   \
+      const void* queries, const void* exclude, int X, const void* in_d,     \
+      const void* in_i, const void* in_c, const void* in_x,                  \
+      const void* in_hops, const void* in_evals,                             \
       const void* in_vis, const void* budget, void* out_d, void* out_i,      \
       void* out_c, void* out_x, void* out_hops, void* out_evals,             \
       void* out_vis, int B, int L, int E, int k, int V, int n_probes,        \
@@ -434,6 +463,9 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
     p.rows = rows;                                                           \
     p.n_rows = n_rows;                                                       \
     p.m = m;                                                                 \
+    p.codebooks = static_cast<const float*>(codebooks);                      \
+    p.m_sub = m_sub;                                                         \
+    p.dsub = dsub;                                                           \
     p.queries = static_cast<const float*>(queries);                          \
     p.exclude = static_cast<const int*>(exclude);                            \
     p.X = X;                                                                 \
@@ -470,3 +502,4 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
 
 BEAM_SEARCH_ENTRY(beam_search_f32, float)
 BEAM_SEARCH_ENTRY(beam_search_f16, __half)
+BEAM_SEARCH_ENTRY(beam_search_pq, uint8_t)

@@ -1,6 +1,7 @@
 // Shared by every kernel library of the port (see kernels/_build.py): the
-// row distances of gather_dist, fused_hop and beam_search, the merge order
-// of beam_merge and beam_search, and the visited set's probe hash.
+// row distances of gather_dist, fused_hop and beam_search, the pq table
+// and its row sum of pq_adc and beam_search, the merge order of beam_merge
+// and beam_search, and the visited set's probe hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -131,6 +132,48 @@ constexpr int per_load() { return 16 / static_cast<int>(sizeof(T)); }
 __device__ __forceinline__ float finish_dist(float s, bool squared) {
   s = fmaxf(s, 0.f);
   return squared ? s : sqrtf(s);
+}
+
+// The pq store's asymmetric distance, shared by pq_adc and beam_search so
+// that their distances agree bit for bit.  A query's table holds
+// ||q_s - C[s, c]||^2 for each subspace s and centroid c, in rows of
+// kPqStride floats: lane t, reading subspace t's entry for code c_t, hits
+// bank (t + c_t) mod 32, so the 32 lanes fall on distinct banks when they
+// share a code.
+constexpr int kPqCentroids = 256;
+constexpr int kPqStride = kPqCentroids + 1;
+
+// Fill lut (m_sub rows of kPqStride floats, shared memory) from the query
+// q (m_sub * dsub floats, shared memory) and the (m_sub, 256, dsub)
+// codebooks: one entry a thread of the block, a sequential fmaf chain over
+// the dsub dims.  The caller synchronises the block after it.
+__device__ __forceinline__ void pq_build_lut(float* lut, const float* q,
+                                             const float* __restrict__ books,
+                                             int m_sub, int dsub) {
+  // codebooks[s, c, :] starts at (s * 256 + c) * dsub = e * dsub
+  for (int e = threadIdx.x; e < m_sub * kPqCentroids; e += blockDim.x) {
+    const int s = e / kPqCentroids, c = e % kPqCentroids;
+    const float* cent = books + static_cast<long long>(e) * dsub;
+    const float* qs = q + s * dsub;
+    float acc = 0.f;
+    for (int k = 0; k < dsub; ++k) {
+      const float t = qs[k] - __ldg(cent + k);
+      acc = fmaf(t, t, acc);
+    }
+    lut[s * kPqStride + c] = acc;
+  }
+}
+
+// The table sum of one code row of m_sub bytes, one warp: lane t takes
+// subspaces t, t+32, ..., then the shuffle reduction; every lane returns
+// the full sum.
+__device__ __forceinline__ float pq_row_sum(const float* lut,
+                                            const uint8_t* __restrict__ row,
+                                            int m_sub, int lane) {
+  float s = 0.f;
+  for (int t = lane; t < m_sub; t += 32)
+    s += lut[t * kPqStride + __ldg(row + t)];
+  return warp_sum(s);
 }
 
 // The total order of a stable ascending sort of keys a at rank ra: by key,

@@ -24,16 +24,17 @@
 // 32 lanes fall on distinct banks when they share a code, but random codes
 // collide as often as without the padding.  Then one warp per gathered
 // code row: lane t takes subspaces t, t+32, ..., reads one code byte and
-// one table entry each, and the warp reduces with shuffles.  At most 128
-// subspaces: 131,584 bytes of table plus the query, above 48 KB through
-// the dynamic shared memory attribute.  The table is rebuilt on every
-// call (every hop), as the TPU kernel rebuilds it.
+// one table entry each, and the warp reduces with shuffles.  The table's
+// build and the row sum are common.cuh's pq_build_lut and pq_row_sum,
+// which beam_search runs too.  At most 128 subspaces: 131,584 bytes of
+// table plus the query, above 48 KB through the dynamic shared memory
+// attribute.  The table is rebuilt on every call (every hop of the host
+// loop), as the TPU kernel rebuilds it; beam_search builds it once a
+// search.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCentroids = 256;
-constexpr int kLutStride = kCentroids + 1;
 constexpr int kThreads = 256;
 
 __global__ void pq_adc_kernel(const unsigned char* __restrict__ codes,
@@ -43,36 +44,21 @@ __global__ void pq_adc_kernel(const unsigned char* __restrict__ codes,
                               const float* __restrict__ queries,
                               float* __restrict__ out, int d, int squared) {
   extern __shared__ float smem[];
-  float* lut = smem;                           // (m_sub, kLutStride)
-  float* q = smem + m_sub * kLutStride;        // (dim,)
+  float* lut = smem;                                 // (m_sub, kPqStride)
+  float* q = smem + m_sub * repro::kPqStride;        // (dim,)
   const long long b = blockIdx.x;
   const int dim = m_sub * dsub;
   for (int i = threadIdx.x; i < dim; i += blockDim.x)
     q[i] = __ldg(queries + b * dim + i);
   __syncthreads();
-  // codebooks[s, c, :] starts at (s * 256 + c) * dsub = e * dsub
-  for (int e = threadIdx.x; e < m_sub * kCentroids; e += blockDim.x) {
-    const int s = e / kCentroids, c = e % kCentroids;
-    const float* cent = codebooks + static_cast<long long>(e) * dsub;
-    const float* qs = q + s * dsub;
-    float acc = 0.f;
-    for (int k = 0; k < dsub; ++k) {
-      const float t = qs[k] - __ldg(cent + k);
-      acc = fmaf(t, t, acc);
-    }
-    lut[s * kLutStride + c] = acc;
-  }
+  repro::pq_build_lut(lut, q, codebooks, m_sub, dsub);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   for (int j = warp; j < d; j += n_warps) {
     long long id = ids[b * d + j];
     id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
-    const unsigned char* row = codes + id * m_sub;
-    float s = 0.f;
-    for (int t = lane; t < m_sub; t += 32)
-      s += lut[t * kLutStride + __ldg(row + t)];
-    s = repro::warp_sum(s);
+    const float s = repro::pq_row_sum(lut, codes + id * m_sub, m_sub, lane);
     if (lane == 0) out[b * d + j] = repro::finish_dist(s, squared != 0);
   }
 }
@@ -84,8 +70,8 @@ REPRO_EXPORT int pq_adc_u8(const void* codes, long long n_rows, int m_sub,
                            const void* queries, void* out, int B, int d,
                            int squared, void* stream) {
   if (B == 0 || d == 0) return 0;
-  const size_t smem =
-      (static_cast<size_t>(m_sub) * kLutStride + m_sub * dsub) * sizeof(float);
+  const size_t smem = (static_cast<size_t>(m_sub) * repro::kPqStride +
+                       m_sub * dsub) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         pq_adc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

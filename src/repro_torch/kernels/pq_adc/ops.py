@@ -25,6 +25,23 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = [_P, _LL, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P]
 
 
+def check_store(codes: torch.Tensor, codebooks: torch.Tensor) -> int:
+    """The pq store as the kernels take it (``pq_adc`` and
+    ``beam_search``): (N, m_sub) uint8 codes and (m_sub, 256, dsub)
+    float32 codebooks, at most MAX_SUBSPACES subspaces.  Returns dsub."""
+    m_sub = codes.shape[1]
+    if codes.dtype != torch.uint8 or codebooks.dtype != torch.float32:
+        raise TypeError(f"the pq store takes uint8 codes and float32 "
+                        f"codebooks, not {codes.dtype} and {codebooks.dtype}")
+    if codebooks.dim() != 3 or tuple(codebooks.shape[:2]) != (m_sub, PQ_K):
+        raise ValueError(f"codes/codebooks disagree: codes m_sub={m_sub}, "
+                         f"codebooks {tuple(codebooks.shape)}")
+    if m_sub > MAX_SUBSPACES:
+        raise ValueError(f"m_sub={m_sub} exceeds the kernel's "
+                         f"{MAX_SUBSPACES} subspaces")
+    return codebooks.shape[2]
+
+
 def pq_adc(codes: torch.Tensor, codebooks: torch.Tensor, ids: torch.Tensor,
            queries: torch.Tensor, *, squared: bool = False,
            impl: str = "kernel") -> torch.Tensor:
@@ -36,18 +53,9 @@ def pq_adc(codes: torch.Tensor, codebooks: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"unknown impl {impl!r}")
     N, m_sub = codes.shape
     B, d = ids.shape
-    if (codes.dtype != torch.uint8 or codebooks.dtype != torch.float32
-            or queries.dtype != torch.float32):
-        raise TypeError(f"pq_adc takes uint8 codes, float32 codebooks and "
-                        f"float32 queries, not {codes.dtype}, "
-                        f"{codebooks.dtype}, {queries.dtype}")
-    if codebooks.dim() != 3 or tuple(codebooks.shape[:2]) != (m_sub, PQ_K):
-        raise ValueError(f"codes/codebooks disagree: codes m_sub={m_sub}, "
-                         f"codebooks {tuple(codebooks.shape)}")
-    if m_sub > MAX_SUBSPACES:
-        raise ValueError(f"m_sub={m_sub} exceeds the kernel's "
-                         f"{MAX_SUBSPACES} subspaces")
-    dsub = codebooks.shape[2]
+    dsub = check_store(codes, codebooks)
+    if queries.dtype != torch.float32:
+        raise TypeError(f"pq_adc takes float32 queries, not {queries.dtype}")
     if ids.dtype != torch.int32 or tuple(queries.shape) != (B, m_sub * dsub):
         raise ValueError(f"bad operands: ids {ids.dtype} {tuple(ids.shape)}, "
                          f"queries {tuple(queries.shape)}, dim "

@@ -11,12 +11,14 @@ behind one interface:
 * ``sq8`` — int8 codes and a per-dimension scale, scored by the
   ``gather_dist_q`` kernel, which dequantizes in registers;
 * ``pq`` — uint8 codes (one byte per subspace) and shared
-  ``(m_sub, 256, dsub)`` codebooks, scored by the ``pq_adc`` kernel, which
-  never decodes.
+  ``(m_sub, 256, dsub)`` codebooks, scored by the ``pq_adc`` kernel on
+  the host loop, which never decodes; inside ``beam_search`` when that
+  kernel takes the search (``core/beam.py::search_kernel_eligible``),
+  from a table built once a search.
 
-On the card, l2 and squared-l2 neighbor distances go through those
-kernels; the inner-product and cosine metrics take ``decode`` and the
-metric's ``pair``, as in the JAX package.  A CPU tensor takes each
+On the card, l2 and squared-l2 neighbor distances of the host loop go
+through those kernels; the inner-product and cosine metrics take
+``decode`` and the metric's ``pair``, as in the JAX package.  A CPU tensor takes each
 kernel's plain version.  The kernels are called through their modules
 (``gdq_ops.gather_dist_q``), so that a caller can swap a module's function.
 

@@ -184,10 +184,11 @@ def _store(codec):
 @pytest.mark.parametrize("codec", ["float32", "fp16", "sq8", "pq"])
 @pytest.mark.parametrize("metric", ["l2", "sqeuclidean", "ip", "cos"])
 def test_routing_rule(device, hop_backend, codec, metric):
-    """Exactly the composed hop over a float32 or fp16 store under l2 or
-    sqeuclidean on a CUDA device runs as one kernel launch."""
-    want = (device == "cuda" and hop_backend == "composed"
-            and codec in ("float32", "fp16")
+    """Exactly a search over a float32, fp16 or pq store under l2 or
+    sqeuclidean on a CUDA device runs as one kernel launch, under either
+    hop backend (the fused hop is the composed hop with the visited
+    filter); the sq8 store, ip and cos keep the host loop."""
+    want = (device == "cuda" and codec in ("float32", "fp16", "pq")
             and metric in ("l2", "sqeuclidean"))
     assert beam.search_kernel_eligible(_store(codec), metric, hop_backend,
                                        torch.device(device)) == want
@@ -229,20 +230,27 @@ class _Asked(Exception):
     pass
 
 
-@pytest.mark.parametrize("k, n_exclude, fits", [(6, 3, True),
-                                                (6, 9_400, True),
-                                                (6, 9_800, False),
-                                                (6_000, 1, False)])
+@pytest.mark.parametrize("k, n_exclude, fits, codec", [
+    (6, 3, True, "f32"), (6, 9_400, True, "f32"), (6, 9_800, False, "f32"),
+    (6_000, 1, False, "f32"), (6, 9_600, True, "f32"),
+    (6, 9_600, False, "pq"), (6, 9_400, True, "pq")])
 def test_routing_rule_holds_the_kernels_shared_memory(golden, monkeypatch,
-                                                      k, n_exclude, fits):
+                                                      k, n_exclude, fits,
+                                                      codec):
     """``range_search`` sizes L >= max(2k, k + X), so a long exploration
     session's exclude list or a k in the thousands needs more shared
     memory than a block has.  ``beam_search`` asks the rule with the
     search's own shapes; on the card the rule sends such a search to the
-    host loop, exactly where the wrapper would refuse it."""
+    host loop, exactly where the wrapper would refuse it.  Over the pq
+    store the lane's table (3 subspaces here, 3,088 bytes) tips a lane of
+    9,600 excluded ids over 227 KB that fits over float32 rows."""
     from repro_torch.core import search
+    from repro_torch.quant.store import make_store
 
     g, graph, _, stores = golden
+    store = stores["f32"][1]
+    if codec == "pq":
+        store = make_store(store, "pq", n=None)
     rule, seen = beam.search_kernel_eligible, {}
 
     def spy(vectors, metric, hop_backend, device, **shape):
@@ -257,13 +265,13 @@ def test_routing_rule_holds_the_kernels_shared_memory(golden, monkeypatch,
     excl = torch.from_numpy(rng.integers(0, 300, (2, n_exclude)).astype(
         np.int32))
     with pytest.raises(_Asked):
-        search.range_search(graph, stores["f32"][1], qs, seeds, k=k,
-                            exclude=excl)
+        search.range_search(graph, store, qs, seeds, k=k, exclude=excl)
     L = seen["beam_width"]
     assert L >= max(2 * k, k + n_exclude)
     assert seen == dict(beam_width=L, degree=8, expand_width=1,
                         n_exclude=n_exclude, visited_size=0, cuda=fits)
-    ops, kw = _operands(B=1, L=L, d=8, m=24, X=n_exclude)
+    ops, kw = _operands(B=1, L=L, d=8, m=24, X=n_exclude,
+                        m_sub=3 if codec == "pq" else 0)
     kw["k"] = k
     if fits:
         bs_ops.beam_search(**ops, **kw)
@@ -272,9 +280,12 @@ def test_routing_rule_holds_the_kernels_shared_memory(golden, monkeypatch,
             bs_ops.beam_search(**ops, **kw)
 
 
-def _operands(B=3, L=8, d=4, m=16, X=2, V=0):
+def _operands(B=3, L=8, d=4, m=16, X=2, V=0, m_sub=0):
+    """The wrapper's operands over float32 rows or, with ``m_sub``, over
+    pq codes of m_sub subspaces of m / m_sub dims."""
     ops = dict(adjacency=torch.zeros((10, d), dtype=torch.int32),
-               rows=torch.zeros((10, m)),
+               rows=(torch.zeros((10, m_sub), dtype=torch.uint8) if m_sub
+                     else torch.zeros((10, m))),
                queries=torch.zeros((B, m)),
                exclude=torch.full((B, X), INVALID, dtype=torch.int32),
                ids=torch.full((B, L), INVALID, dtype=torch.int32),
@@ -286,6 +297,8 @@ def _operands(B=3, L=8, d=4, m=16, X=2, V=0):
                visited=(torch.full((B, V), INVALID, dtype=torch.int32)
                         if V else None))
     kw = dict(n_valid=10, k=2, eps1=1.1, expand_width=1, max_hops=4)
+    if m_sub:
+        kw["codebooks"] = torch.zeros((m_sub, 256, m // m_sub))
     return ops, kw
 
 
@@ -319,6 +332,40 @@ def test_wrapper_rejects_bad_operands(bad):
         bs_ops.beam_search(**ops, **kw)
 
 
+BAD_PQ = {
+    "codes without codebooks": (dict(codebooks=None), ValueError,
+                                "float32 or float16"),
+    "f32 rows with codebooks": (dict(rows=torch.zeros((10, 4))), TypeError,
+                                "uint8 codes"),
+    "codebooks float64": (dict(codebooks=torch.zeros((4, 256, 4),
+                                                     dtype=torch.float64)),
+                          TypeError, "float32 codebooks"),
+    "codebooks m_sub": (dict(codebooks=torch.zeros((3, 256, 4))),
+                        ValueError, "disagree"),
+    "codebooks centroids": (dict(codebooks=torch.zeros((4, 128, 4))),
+                            ValueError, "disagree"),
+    "codebooks 2-D": (dict(codebooks=torch.zeros((4, 256))), ValueError,
+                      "disagree"),
+    "queries width": (dict(queries=torch.zeros((3, 12))), ValueError,
+                      "queries"),
+}
+
+
+@pytest.mark.parametrize("bad", list(BAD_PQ))
+def test_wrapper_rejects_bad_pq_operands(bad):
+    """The pq store's checks (``kernels/pq_adc/ops.py::check_store``, as
+    ``pq_adc`` raises them), before either version runs; the good operands
+    pass them."""
+    ops, kw = _operands(m=16, m_sub=4)
+    out = bs_ops.beam_search(**ops, **kw)
+    assert torch.equal(out[0], ops["ids"])          # nothing to expand
+    change, exc, match = BAD_PQ[bad]
+    for name, x in change.items():
+        (kw if name == "codebooks" else ops)[name] = x
+    with pytest.raises(exc, match=match):
+        bs_ops.beam_search(**ops, **kw)
+
+
 @pytest.mark.parametrize("kw_bad", [dict(k=0), dict(expand_width=0),
                                     dict(expand_width=9), dict(max_hops=-1),
                                     dict(hop_budget=torch.zeros(
@@ -349,6 +396,23 @@ def test_smem_bytes_at_the_main_paths_shapes():
         + 4 * 32 + 32 + 16)
     assert bs_ops.smem_bytes(192, 80, 20, 1, 0, 1) < 48 * 1024
     assert bs_ops.smem_bytes(192, 30, 40, 1, 1024, 2) > 4096
+
+
+def test_smem_bytes_at_pq_servings_shapes():
+    """``pq-serving`` (m=192 as m_sub=24 subspaces of 8, L=120 for its
+    rerank of 120): the table is 24 rows of 257 floats, under "classic"
+    (C=20, no visited set) and under "multi-e4-fused" (E=4, C=80 and the
+    default 4,096-slot table); the 128-subspace cap alone is 131,584."""
+    lut = 24 * 257 * 4
+    assert bs_ops.smem_bytes(192, 120, 20, 1, 0, 1, 24) == (
+        16 + 768 + lut + 2 * 560 + 2 * 480 + 80 + 16 + 0 + 16 + 16
+        + 4 * 128 + 32 + 16) == 28_224
+    assert beam.default_visited_size(120, 20) == 4096
+    assert bs_ops.smem_bytes(192, 120, 80, 1, 4096, 4, 24) == (
+        16 + 768 + lut + 2 * 800 + 2 * 480 + 320 + 16 + 16_384 + 16 + 16
+        + 4 * 128 + 80 + 16) == 45_376
+    assert (bs_ops.smem_bytes(128, 8, 4, 2, 0, 1, 128)
+            - bs_ops.smem_bytes(128, 8, 4, 2, 0, 1)) == 131_584
 
 
 def test_unknown_impl():

@@ -16,6 +16,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 N, N_QUERIES, BATCH, N_SMALL = 800, 64, 32, 300
+#: the script's own check, which the module's rehearsal replaces
+EXPECT_LAUNCHES = cs.expect_launches
 
 
 def _no_launches(kernel, got, want, what):
@@ -70,9 +72,14 @@ def recsys(rehearsal):
 
 
 def test_phase2_rows(rehearsal, recsys):
-    rows = cs.phase2("cpu", n_queries=64)
+    rows, host_loop = cs.phase2("cpu", n_queries=64)
     rows["bag_lookup"] = cs.bag_checks(recsys, "cpu")[0]   # as main() does
     assert set(rows) == set(cs.KERNELS)
+    # the host loops' launches beside the whole search, by counter: none
+    # on the CPU, where every wrapper takes its plain version
+    assert set(host_loop) == set(cs.launch_counters())
+    assert set(cs.HOST_LOOP_ONLY) <= set(host_loop)
+    assert not any(host_loop.values()), host_loop
     # the kernels' JSON line: every key of every row, the timing method too
     line = cs.kernel_rows(rows, dict.fromkeys(rows, 3))
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -170,17 +177,27 @@ def test_phase2_compressed_checks(rehearsal, check, kw, shape):
 
 @pytest.mark.parametrize("kw, shape", [
     (dict(B=cs.BATCH, L=30), "serve: B=256 L=30 E=1 k=10 eps=0.1 d=20 m=192 "
-                             "f32 V=0 X=0"),
+                             "f32 V=0 X=0 composed"),
     (dict(B=16, L=30, rows="f16", what="serve fp16"), "f16 V=0"),
     (dict(B=16, L=30, E=2, V=1024, what="visited"), "E=2 k=10"),
     (dict(B=8, L=42, X=32, what="explore"), "explore: B=8 L=42"),
     (dict(B=1, L=40, k=20, eps=0.001, seeds=2, what="refine live"),
      "refine live: B=1 L=40 E=1 k=20 eps=0.001"),
+    (dict(B=16, L=120, eps=0.2, rows="pq", what="pq-serving"),
+     "pq-serving: B=16 L=120 E=1 k=10 eps=0.2 d=20 m=192 pq m_sub=24 V=0 "
+     "X=0 composed"),
+    (dict(B=16, L=120, E=4, V=4096, eps=0.2, rows="pq", hop="fused",
+          what="pq-serving multi-e4-fused"), "E=4 k=10 eps=0.2 d=20 m=192 "
+                                             "pq m_sub=24 V=4096 X=0 fused"),
+    (dict(B=16, L=30, E=4, V=1024, hop="fused", what="multi-e4-fused"),
+     "multi-e4-fused: B=16 L=30 E=4 k=10 eps=0.1 d=20 m=192 f32 V=1024 X=0 "
+     "fused"),
 ])
 def test_phase2_beam_search_checks(rehearsal, kw, shape):
     """The whole search's check on the CPU: the wrapper takes its plain
-    version, so the kernel side, the host loop and the plain version all
-    agree, and no beam_search launch is counted."""
+    version, so the kernel side, the host loop (with pq_adc or fused_hop
+    where the check names them) and the plain version all agree, and no
+    launch is counted, neither of beam_search nor in the host loop."""
     from repro_torch.kernels.beam_search import ops
 
     inp = cs.phase2_inputs("cpu", N=3000)
@@ -196,8 +213,11 @@ def test_phase2_beam_search_checks(rehearsal, kw, shape):
     # bound by their scoring operations here
     rows = int(re.search(r"(\d+) distinct rows", r["shape"]).group(1))
     assert 0 < rows <= inp["n_valid"]
+    # over pq each lane's table (3 * 256 * m flops) is small beside the
+    # codebooks' 196,608 bytes and the beams', so bytes bound it
     assert r["bound_ms"] > 0 and r["bound_by"] == (
         "operations" if kw["B"] == cs.BATCH else "bytes")
+    assert not any(r["host_launches"].values()), r["host_launches"]
 
 
 def test_beam_search_is_counted_and_routed_to_plain():
@@ -224,7 +244,19 @@ def test_count_searches_counts_range_search_calls(rehearsal, served):
     rule = functools.partial(beam.search_kernel_eligible, idx._dev_vectors,
                              "l2")
     assert not rule("composed", "cpu")
-    assert rule("composed", "cuda") and not rule("fused", "cuda")
+    # the kernel takes either hop over float32, fp16 and pq; sq8 and the
+    # ip metric keep the host loop
+    assert rule("composed", "cuda") and rule("fused", "cuda")
+    from repro_torch.quant.store import make_store
+
+    for codec, want in (("fp16", True), ("pq", True), ("sq8", False)):
+        # not idx.store_for: phase 4b times the index's first pq fit
+        store = make_store(idx._dev_vectors, codec, n=idx.n)
+        for hop in beam.HOP_BACKENDS:
+            assert beam.search_kernel_eligible(store, "l2", hop,
+                                               "cuda") == want
+    assert not beam.search_kernel_eligible(idx._dev_vectors, "ip",
+                                           "composed", "cuda")
     _, n = cs.count_searches(count, "serve", cs._batches,
                              lambda q: idx.search_batch(q, k=cs.K),
                              queries, 16, kernel=False)
@@ -235,6 +267,78 @@ def test_count_searches_counts_range_search_calls(rehearsal, served):
     assert all(v == 0 for v in launches.values()), launches
     from repro_torch.core import build, search
     assert build.range_search is search.range_search   # restored
+
+
+def _launch_counts(main=1, host=1):
+    """Main-path and phase-2 host-loop launches: every kernel ``main``
+    times on the main path but the host-loop-only ones, which the host
+    loops launch ``host`` times."""
+    names = list(cs.launch_counters())
+    launches = {n: 0 if n in cs.HOST_LOOP_ONLY else main for n in names}
+    return launches, {n: host if n in cs.HOST_LOOP_ONLY else 0
+                      for n in names}
+
+
+def test_main_path_launch_rule(monkeypatch):
+    """Kernels of the main path must launch there; gather_dist, pq_adc and
+    fused_hop, which serve only the host loop since beam_search takes the
+    float32, fp16 and pq searches, must launch no time there and at least
+    once in phase 2's host loops."""
+    monkeypatch.setattr(cs, "expect_launches", EXPECT_LAUNCHES)
+    assert set(cs.HOST_LOOP_ONLY) == {"gather_dist", "gather_dist[fp16]",
+                                      "fused_hop", "pq_adc"}
+    cs.check_main_path_launches(*_launch_counts())
+    for name in cs.HOST_LOOP_ONLY:
+        launches, host = _launch_counts()
+        launches[name] = 3
+        with pytest.raises(AssertionError, match=f"3 {re.escape(name)} "):
+            cs.check_main_path_launches(launches, host)
+        launches, host = _launch_counts()
+        host[name] = 0
+        with pytest.raises(AssertionError, match="host loops never"):
+            cs.check_main_path_launches(launches, host)
+    for name in ("beam_search", "beam_merge", "gather_dist_q",
+                 "mrng_occlusion", "l2_topk", "bag_lookup"):
+        launches, host = _launch_counts()
+        launches[name] = 0
+        with pytest.raises(AssertionError, match="main path never"):
+            cs.check_main_path_launches(launches, host)
+
+
+@pytest.mark.parametrize("beside", [None, "beam_merge", "gather_dist",
+                                    "pq_adc", "fused_hop"])
+def test_count_searches_refuses_a_hop_kernel_beside_the_whole_search(
+        monkeypatch, beside):
+    """Where the kernel takes a piece's searches, one beam_search launch a
+    range_search call and no per-hop kernel launch beside them."""
+    from repro_torch.core import build, search
+    from repro_torch.core.baselines import nsw
+
+    monkeypatch.setattr(cs, "expect_launches", EXPECT_LAUNCHES)
+    counters = cs.launch_counters()
+    for mod, attr in counters.values():
+        monkeypatch.setattr(mod, attr, 0)            # restored afterwards
+    for mod in (build, search, nsw):
+        monkeypatch.setattr(mod, "range_search", lambda: None)
+    bs = counters["beam_search"][0]
+
+    def piece():
+        for _ in range(3):
+            search.range_search()                    # the counted call
+            bs.launches += 1
+        if beside is not None:
+            setattr(*counters[beside], 1)
+
+    count = functools.partial(cs.counted, counters,
+                              dict.fromkeys(counters, 0))
+    if beside is None:
+        assert cs.count_searches(count, "piece", piece, kernel=True) == (
+            None, 3)
+    else:
+        with pytest.raises(AssertionError, match=f"1 {beside} launches"):
+            cs.count_searches(count, "piece", piece, kernel=True)
+    with pytest.raises(AssertionError, match="3 beam_search launches"):
+        cs.count_searches(count, "piece", piece, kernel=False)
 
 
 def test_store_bytes_at_audio_size():
