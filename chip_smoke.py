@@ -15,9 +15,16 @@ Phases (any failure raises and exits non-zero):
   1. header: the card's name and power limit, kernel build seconds;
   2. each kernel against its plain version at the main path's shapes:
      serving (B=256, d=20, m=192, L=30, E in {1, 4}, V=1024), an insert
-     wave's search (B=64, L=80), an exploration hop (B=8, L=42), an extend
-     block's lune test (B=16, K=40, and the build's last block), a refine
-     chunk's (B=16, K=20), and refinement's searches (L=40: a chunk's
+     wave's search (B=64, L=80), an exploration hop (B=8, L=42), the
+     lune test at an extend block's shape (B=16, K=40, and the build's
+     last block) and at a refine chunk's (B=16, K=20), an extend block's
+     whole selection pass, extend_select (W=16, K=40, d=20; the build's
+     last block; and a block with failed lanes and the phase-2 latch, each
+     under every scheme, with and without the Alg. 2 check, and
+     sqeuclidean), held equal (torch.equal) to the two-step path it
+     replaces (the mrng_occlusion kernel, then the torch steps) and to its
+     plain version (ids on >= 99% of slots, dists rtol 1e-5), and
+     refinement's searches (L=40: a chunk's
      batched first search, B=REFINE_LANES, and a live one, B=1), and
      the compressed stores' (gather_dist on fp16 rows, gather_dist_q on
      sq8 codes and pq_adc on pq codes at B=256, d=20 and, for an E=4 hop,
@@ -33,19 +40,22 @@ Phases (any failure raises and exits non-zero):
      L=42, 32 excluded ids), refinement's two searches (B=75 and 1,
      L=40, k=20, eps 0.001), pq-serving over the phase-2 rows encoded
      under seeded codebooks (m_sub=24, no k-means fit; B=256, L=120, eps
-     0.2, and E=4 with V=4096 under the fused preset) and the fused
-     preset over float32 rows (B=256, L=30, E=4, V=1024), each held
-     equal (torch.equal, every field of the state) to the host loop with
-     the per-hop kernels (gather_dist or pq_adc and beam_merge; fused_hop
-     for the fused preset over float32 rows) and on >= 99% of id slots
-     to its plain version; with times
+     0.2, and E=4 with V=4096 under the fused preset), the fused preset
+     over float32 rows (B=256, L=30, E=4, V=1024) and sq8-serving over
+     the phase-2 rows encoded under their sq8 scale (B=256, L=40, and
+     E=4 with V=1024 under the fused preset), each held equal
+     (torch.equal, every field of the state) to the host loop with the
+     per-hop kernels (gather_dist, gather_dist_q or pq_adc and
+     beam_merge; fused_hop for the fused preset over float32 rows) and on
+     >= 99% of id slots to its plain version; with times
      (kernel, plain version and library call alike: CUDA events around
      a replay of a CUDA graph of 50 back-to-back calls, over 50; the
      plain whole search, which reads "any lane alive?" to the host, by
      events around 2 eager calls);
   3. build: make_dataset("manifold", n, 10000, 192) under the paper's
      audio parameters (degree 20, k_ext 40, eps_ext 0.3), the device
-     extension in blocks of 16, wave_size=64, then the Table-1
+     extension in blocks of 16 (one extend_select launch a block),
+     wave_size=64, then the Table-1
      invariants; the idle share of one wave search and of one extend
      block; then the host extension on a build of N_HOST vertices;
   4. ground truth: BruteForceIndex(base).search(backend="kernel"), the
@@ -60,9 +70,8 @@ Phases (any failure raises and exits non-zero):
      written out and against the bytes each store's tensors hold, 10,000
      queries (QPS, recall@10, hops, evals), the idle
      share of one batch; then 512 queries of each store under
-     "multi-e4-fused" (beam_search over fp16 and pq, where the fused
-     preset is the composed hop with the visited filter; the host loop
-     over sq8);
+     "multi-e4-fused" (beam_search over every store, where the fused
+     preset is the composed hop with the visited filter);
   4c. baselines on the first N_HOST rows and N_BASELINE_QUERIES queries:
      the kGraph (nn_descent, K=20, 6 iterations) searched from vertex 0,
      the random even-regular graph (degree 20, Table-1) searched from the
@@ -110,13 +119,16 @@ serving only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.  Each counted piece that searches is held to one beam_search
 launch for each of its range_search calls where the search kernel takes
-the configuration (a float32, fp16 or pq store, either hop), with no
-beam_merge, gather_dist, pq_adc or fused_hop launch beside them, and to
-none elsewhere (the sq8 store): one a wave of the build, 40 for 10,000
-"classic" queries in batches of 256.  gather_dist, pq_adc and fused_hop
-then serve only the host loop (the sq8 store keeps beam_merge and
-gather_dist_q): each must launch no time on the main path and at least
-once in phase 2's comparisons against the host loop.
+the configuration (any store under l2, either hop), with no beam_merge,
+gather_dist, gather_dist_q, pq_adc or fused_hop launch beside them, and
+to none elsewhere: one a wave of the build, 40 for 10,000 "classic"
+queries in batches of 256.  gather_dist, gather_dist_q, beam_merge,
+pq_adc and fused_hop then serve only the host loop (ip, cos, oversize
+lanes): each must launch no time on the main path and at least once in
+phase 2's comparisons against the host loop.  A build with the device
+extension launches extend_select once an extend block and no
+mrng_occlusion, which refinement's conformity test launches once a
+chunk.
 
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits non-zero and prints no result.  It imports nothing of
@@ -194,17 +206,21 @@ KERNELS = {
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
     "l2_topk": "src/repro/kernels/l2_topk/l2_topk.py:93",
     "bag_lookup": "src/repro/kernels/bag_lookup/bag_lookup.py:38",
-    # the whole search folds beam_merge, gather_dist, pq_adc and fused_hop
-    # into one launch
+    # the whole search folds beam_merge, gather_dist, gather_dist_q, pq_adc
+    # and fused_hop into one launch
     "beam_search": "src/repro/kernels/beam_merge/beam_merge.py:189, "
                    "src/repro/kernels/gather_dist/gather_dist.py:35, "
+                   "src/repro/kernels/gather_dist_q/gather_dist_q.py:37, "
                    "src/repro/kernels/pq_adc/pq_adc.py:68, "
                    "src/repro/kernels/fused_hop/fused_hop.py:114",
+    # the extension's selection pass: the lune test and the steps around it
+    "extend_select": "src/repro/kernels/mrng_occlusion/mrng_occlusion.py:50",
 }
 # kernels that only the host loop of hops launches, since beam_search takes
-# every float32, fp16 and pq search under either hop: none on the main
+# every l2 search over every store under either hop: none on the main
 # path, and phase 2's comparisons against the host loop launch each
-HOST_LOOP_ONLY = ("gather_dist", "gather_dist[fp16]", "fused_hop", "pq_adc")
+HOST_LOOP_ONLY = ("gather_dist", "gather_dist[fp16]", "gather_dist_q",
+                  "beam_merge", "fused_hop", "pq_adc")
 # phase 4b: the compressed stores served under the "classic" preset
 QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
 # DEGIndex.memory_stats() at the audio size (n=53,387, m=192), by
@@ -717,15 +733,18 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
                       what="serve") -> dict:
     """The whole-search kernel at one of the main path's shapes, over the
     phase-2 adjacency (a graph of n_valid vertices) and rows (float32, fp16
-    with ``rows="f16"``, or with ``rows="pq"`` the phase-2 rows encoded
-    under seeded codebooks of ``m_sub`` subspaces, as ``check_pq_adc``
-    seeds them: the kernel computes the same function of any codebook, so
-    no k-means fit): B lanes of near-row queries seeded at ``seeds``
+    with ``rows="f16"``, with ``rows="sq8"`` the phase-2 rows encoded under
+    their own sq8 scale, as ``check_gather_dist_q`` encodes them, or with
+    ``rows="pq"`` the phase-2 rows encoded under seeded codebooks of
+    ``m_sub`` subspaces, as ``check_pq_adc`` seeds them: the kernel
+    computes the same function of any codebook, so no k-means fit): B
+    lanes of near-row queries seeded at ``seeds``
     random vertices, ``X`` excluded ids a lane, a ``V``-slot visited
     table.  From one ``init``, the kernel against the host loop under
     ``hop`` with the per-hop kernels (``torch.equal`` on every field of
-    the final state; ``hop="fused"`` runs ``fused_hop`` there, which the
-    whole search replaces by the composed hop with the visited filter)
+    the final state; ``hop="fused"`` runs ``fused_hop`` there over float32
+    rows, which the whole search replaces by the composed hop with the
+    visited filter, and the composed hop over a compressed store)
     and against the plain version: ids equal on AGREE_FLOOR of the slots,
     dists within rtol 1e-5 where the ids are equal, and the lanes' total
     hops and evals within 1 - AGREE_FLOOR of the plain version's (a lane's
@@ -735,16 +754,18 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
     and extract outside it.  The bound: the distinct store rows (code rows
     of m_sub bytes over pq, with its codebooks once) and adjacency rows the
     call reads (those the plain version indexes, which may add row 0, its
-    filler for a slot it does not score), the queries, exclude lists and
-    visited tables, and the beam in and out, over the memory rate; or
-    the operations, 3 a scored row's dimension (over pq: each lane's table,
-    3 a subspace, centroid and dimension, and m_sub adds a scored row).
+    filler for a slot it does not score), the sq8 scale once, the
+    queries, exclude lists and visited tables, and the beam in and out,
+    over the memory rate; or the operations, 3 a scored row's dimension
+    (over sq8 4, the dequantizing multiply too; over pq: each lane's
+    table, 3 a subspace, centroid and dimension, and m_sub adds a scored
+    row).
     ``host_launches`` holds the kernel launches of the host-loop run."""
     import torch
     from repro_torch.core import beam
     from repro_torch.core.graph import DEGraph
     from repro_torch.kernels.beam_search import ops
-    from repro_torch.quant import pq
+    from repro_torch.quant import codec, pq
     from repro_torch.quant.store import VectorStore
 
     rng, d, m, n_valid = inp["rng"], PHASE2["d"], PHASE2["m"], inp["n_valid"]
@@ -757,6 +778,10 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
             np.float32), device=device)
         store = VectorStore(data=pq.encode(inp["vectors"], books), codec="pq",
                             codebooks=books)
+    elif rows == "sq8":
+        scale = codec.calibrate_sq8_scale(inp["vectors"])
+        store = VectorStore(data=codec.sq8_encode(inp["vectors"], scale),
+                            scale=scale, codec="sq8")
     elif rows == "f16":
         store = VectorStore(data=inp["vectors"].to(torch.float16),
                             codec="fp16")
@@ -780,7 +805,8 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
 
     def run(impl="kernel"):
         return ops.beam_search(adj, store.data, q, excl, *state, impl=impl,
-                               codebooks=store.codebooks, **kw)
+                               scale=store.scale, codebooks=store.codebooks,
+                               **kw)
 
     got = run()
     counters = launch_counters()
@@ -828,6 +854,8 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
         row_bytes, n_ops = m_sub, 3 * B * 256 * m + scored * m_sub
         books_bytes = store.codebooks.numel() * 4
         label = f"pq m_sub={m_sub}"
+    elif rows == "sq8":
+        row_bytes, n_ops, books_bytes = m, 4 * scored * m, m * 4
     else:
         row_bytes, n_ops, books_bytes = (m * store.data.element_size(),
                                          3 * scored * m, 0)
@@ -898,6 +926,136 @@ def check_mrng_occlusion(inp, device, B, K) -> dict:
                 tol="dists rtol 1e-5; flags equal off a 1e-5 border")
 
 
+def extend_select_inputs(inp, device, W, *, failed=False):
+    """An extend block's operands over the phase-2 graph: W near-row
+    points, each with its K_EXT nearest of 4 K_EXT random vertices as its
+    ascending candidate list, taking the ids after the graph's vertices
+    (so every candidate is eligible), and edge weights that are the true
+    distances of the candidates' rows.  ``failed``: lane 0 keeps 3
+    candidates and lane 1 none (both must fail), lane 2 takes an id below
+    half its candidates (they become ineligible), and in a copy of the
+    graph lane 3's first candidate becomes the first neighbor of each of
+    its others, whose distances are doubled: once the first joins U, the
+    lune test blocks every other, and the phase-2 latch flips."""
+    import torch
+
+    rng, N, n_valid = inp["rng"], inp["N"], inp["n_valid"]
+    vec, adj = inp["vectors"], inp["adjacency"]
+    K = K_EXT
+    q = _near_queries(inp, W, device)
+    pool = torch.tensor(np.stack([rng.choice(n_valid, 4 * K, replace=False)
+                                  for _ in range(W)]).astype(np.int32),
+                        device=device)
+    dist = true_dists(q, vec, pool).float()
+    order = torch.argsort(dist, dim=1, stable=True)[:, :K]
+    cand = torch.gather(pool, 1, order).contiguous()
+    cand_d = torch.gather(dist, 1, order).contiguous()
+    v_ids = torch.arange(n_valid, n_valid + W, dtype=torch.int32,
+                         device=device)
+    if failed:
+        cand[0, 3:] = INVALID
+        cand_d[0, 3:] = float("inf")
+        cand[1] = INVALID
+        cand_d[1] = float("inf")
+        v_ids[2] = int(cand[2].median())
+        adj = adj.clone()
+        adj[cand[3, 1:].long(), 0] = cand[3, 0]
+        cand_d[3] *= 2
+    rows = torch.unique(cand[cand != INVALID]).long()
+    nbr = adj[rows].long().clamp(0, N - 1)
+    weights = torch.zeros(adj.shape, device=device)
+    weights[rows] = (vec[rows][:, None, :] - vec[nbr]).norm(dim=-1)
+    return (adj, weights, vec, cand, cand_d, q, v_ids)
+
+
+def check_extend_select(inp, device, W, *, failed=False,
+                        what="extend block") -> dict:
+    """The Alg. 3 selection pass at (W, K_EXT, d) on extend_select_inputs:
+    for every scheme, with and without the Alg. 2 check, and under
+    sqeuclidean, the kernel against the two-step path it replaces (the
+    mrng_occlusion kernel, then the torch steps): sel_ids, sel_dists and
+    ok equal (torch.equal, the lune test being the same device function);
+    and against its plain version: sel_ids equal on AGREE_FLOOR of the
+    slots, sel_dists within rtol 1e-5 where they are, ok equal.  The
+    scheme of the audio config (C, with the check) is timed, beside the
+    two-step path (logged).  The bound: the distinct valid neighbor rows,
+    the candidates' adjacency and weight rows, the queries, candidates and
+    outputs, over the memory rate; or 3 operations a scored row's
+    dimension."""
+    import torch
+    from repro_torch.kernels.extend_select import ops, ref
+    from repro_torch.kernels.mrng_occlusion import ops as occ_ops
+
+    d, m = PHASE2["d"], PHASE2["m"]
+    args = extend_select_inputs(inp, device, W, failed=failed)
+
+    def two_step(**kw):
+        return ref.extend_select_ref(*args, occlusion=occ_ops.mrng_occlusion,
+                                     **kw)
+
+    agree, n_latched, n_failed, err = [], 0, 0, 0.0
+    for kw in [dict(scheme=s, rng_checks=c) for s in ref.SCHEMES
+               for c in (True, False)] + [dict(metric="sqeuclidean")]:
+        got = ops.extend_select(*args, **kw)
+        want = two_step(**kw)
+        for name, g, h in zip(("sel_ids", "sel_dists", "ok"), got, want):
+            if not torch.equal(g, h):
+                raise AssertionError(f"extend_select ({what}, W={W}, {kw}): "
+                                     f"{name} differs from the two-step "
+                                     "path's")
+        *plain, latched = ref.extend_select_latched(*args, **kw)
+        same = got[0] == plain[0]
+        agree.append(float(same.float().mean()))
+        if not torch.equal(got[2], plain[2]):
+            raise AssertionError(f"extend_select ({what}, {kw}): ok differs "
+                                 "from the plain version's")
+        fin = same & torch.isfinite(plain[1])
+        if not torch.allclose(got[1][fin], plain[1][fin], rtol=1e-5, atol=0):
+            raise AssertionError(f"extend_select ({what}, {kw}): sel_dists "
+                                 "differ from the plain version's by more "
+                                 "than rtol 1e-5")
+        if fin.any():
+            err = max(err, float((got[1] - plain[1])[fin].abs().max()))
+        if kw.get("rng_checks", True) and kw.get("scheme", "C") == "C":
+            n_latched = max(n_latched, int(latched.sum()))
+            n_failed = max(n_failed, int((~got[2]).sum()))
+    if min(agree) < AGREE_FLOOR:
+        raise AssertionError(f"extend_select ({what}): sel_ids equal the "
+                             f"plain version's on only {min(agree):.4f} of "
+                             "slots")
+    if failed and not (n_failed >= 2 and n_latched >= 1):
+        raise AssertionError(f"extend_select ({what}): {n_failed} failed "
+                             f"and {n_latched} latched lanes, want >= 2 "
+                             "and >= 1")
+    t = time_call(lambda: ops.extend_select(*args), "extend_select_kernel")
+    tp = time_call(lambda: ops.extend_select(*args, impl="ref"))
+    t2 = time_call(two_step)
+    log(f"  extend_select ({what}): the two-step path it replaces "
+        f"(mrng_occlusion kernel, then the torch steps) "
+        f"{t2['device_ms']:.6f} ms device ({t2['timed_by']}; "
+        f"{t2['event_ms']:.6f} ms per eager call)")
+    adj, weights, vec, cand, cand_d, q, v_ids = args
+    valid = (cand != INVALID) & (cand < v_ids[:, None])
+    nbr = adj[torch.where(valid, cand, 0).long()]
+    scored = valid[:, :, None] & (nbr != INVALID)
+    rows = torch.unique(nbr[scored].long().clamp(0, inp["N"] - 1)).numel()
+    cand_rows = torch.unique(cand[valid]).numel()
+    nb = (rows * m * 4 + cand_rows * d * 8 + q.numel() * 4 + cand.numel() * 8
+          + W * 4 + W * d * 8 + W)
+    bms, by = bound_ms(nb, 3 * int(scored.sum()) * m)
+    return dict(name="extend_select", max_abs_err=err, t=t, tp=tp, tl=None,
+                two_step=t2, bound_ms=bms, bound_by=by,
+                shape=f"{what}: W={W} K={K_EXT} d={d} m={m} f32 l2, "
+                      f"{int(scored.sum())} rows scored ({rows} distinct), "
+                      f"cluster {ops.cluster_size(K_EXT)}; {n_failed} failed "
+                      f"and {n_latched} latched lanes (scheme C); sel_ids "
+                      f"equal to the plain version's on {min(agree):.4%} "
+                      "of slots or more",
+                tol="sel_ids, sel_dists, ok equal to the two-step path "
+                    "(torch.equal); ids >= 99% equal to the plain version, "
+                    "dists rtol 1e-5 there, ok equal")
+
+
 def last_block(n: int, degree: int) -> int:
     """Lanes of the last extend block of a build of ``n`` vertices: the
     first degree + 1 form the initial graph, the rest come in waves."""
@@ -922,8 +1080,10 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
     L_sq8 = max(L, QUANT_PRESETS["sq8-serving"].rerank_k)
     pq_serving = QUANT_PRESETS["pq-serving"]
     L_pq = max(L, pq_serving.rerank_k)
-    # the fused preset's default tables: 1,024 slots at L=30, 4,096 at 120
+    # the fused preset's default tables: 1,024 slots at L=30 (and sq8's
+    # L=40), 4,096 at 120
     V_fused, V_pq = default_visited_size(L, d), default_visited_size(L_pq, d)
+    V_sq8 = default_visited_size(L_sq8, d)
     results = [check_gather_dist(inp, device, B),
                check_beam_merge(inp, device, B, L, d),
                check_beam_merge(inp, device, B, L, 4 * d),
@@ -937,6 +1097,13 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
                check_mrng_occlusion(inp, device, CHUNK, d),
                check_mrng_occlusion(inp, device, last_block(n_build, d),
                                     K_EXT),
+               # the extension's selection pass: an extend block, the
+               # build's last block, and failed lanes with the latch
+               check_extend_select(inp, device, EXTEND_BLOCK),
+               check_extend_select(inp, device, last_block(n_build, d),
+                                   what="last block"),
+               check_extend_select(inp, device, EXTEND_BLOCK, failed=True,
+                                   what="failed lanes and the latch"),
                check_gather_dist(inp, device, REFINE_LANES),
                check_beam_merge(inp, device, REFINE_LANES, L_opt, d),
                check_gather_dist(inp, device, 1),
@@ -992,7 +1159,14 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
                                  eps=pq_serving.eps, rows="pq", hop="fused",
                                  what="pq-serving multi-e4-fused"),
                check_beam_search(inp, device, B, L, E=4, V=V_fused,
-                                 hop="fused", what="multi-e4-fused")]
+                                 hop="fused", what="multi-e4-fused"),
+               # sq8-serving under "classic" and "multi-e4-fused", each held
+               # against the host loop with gather_dist_q and beam_merge
+               check_beam_search(inp, device, B, L_sq8, rows="sq8",
+                                 what="sq8-serving"),
+               check_beam_search(inp, device, B, L_sq8, E=4, V=V_sq8,
+                                 rows="sq8", hop="fused",
+                                 what="sq8-serving multi-e4-fused")]
     for r in results:
         log(f"phase2 {r['name']} [{r['shape']}] ok ({r['tol']}): "
             + timings(r, "library"))
@@ -1001,12 +1175,22 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
                  for name in launch_counters()}
     log(f"phase2 the host loops' launches beside beam_search: {host_loop}")
     # the JSON rows carry the main path's shapes: the classic hop's merge
-    # (C = d), the fused preset's hop (E = 4), an extend block's lune
-    # test (K = k_ext), the build's launches, and the ground truth's scan
-    rows = {"gather_dist": results[0], "beam_merge": results[1],
-            "fused_hop": results[4], "mrng_occlusion": results[9],
-            "gather_dist_q": results[16], "pq_adc": results[17],
-            "l2_topk": results[25], "beam_search": results[32]}
+    # (C = d), the fused preset's hop (E = 4), a refine chunk's lune test
+    # (the main path's mrng_occlusion launches), an extend block's
+    # selection pass (K = k_ext), the ground truth's scan and classic
+    # serving's whole search
+    by_name = {}
+    for r in results:
+        by_name.setdefault(r["name"], []).append(r)
+    rows = {"gather_dist": by_name["gather_dist"][0],
+            "beam_merge": by_name["beam_merge"][0],
+            "fused_hop": by_name["fused_hop"][1],
+            "mrng_occlusion": by_name["mrng_occlusion"][1],
+            "extend_select": by_name["extend_select"][0],
+            "gather_dist_q": by_name["gather_dist_q"][0],
+            "pq_adc": by_name["pq_adc"][0],
+            "l2_topk": by_name["l2_topk"][0],
+            "beam_search": by_name["beam_search"][0]}
     return rows, host_loop
 
 
@@ -1019,6 +1203,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.bag_lookup import ops as bag_ops
     from repro_torch.kernels.beam_merge import ops as bm_ops
     from repro_torch.kernels.beam_search import ops as bs_ops
+    from repro_torch.kernels.extend_select import ops as es_ops
     from repro_torch.kernels.fused_hop import ops as fh_ops
     from repro_torch.kernels.gather_dist import ops as gd_ops
     from repro_torch.kernels.gather_dist_q import ops as gdq_ops
@@ -1027,6 +1212,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.pq_adc import ops as adc_ops
 
     return {"beam_search": (bs_ops, "launches"),
+            "extend_select": (es_ops, "launches"),
             "gather_dist": (gd_ops, "launches"),
             "gather_dist[fp16]": (gd_ops, "launches_f16"),
             "beam_merge": (bm_ops, "launches"),
@@ -1080,8 +1266,9 @@ def count_searches(count, what: str, fn, *args, kernel: bool, **kwargs):
     """``count(fn, ...)``, one counted piece of the main path, and its
     launches read just after it: one beam_search launch for each of its
     range_search calls where ``kernel`` (the search kernel takes their
-    configuration), and then no beam_merge, gather_dist, pq_adc or
-    fused_hop launch beside them; no beam_search launch where not.
+    configuration), and then no beam_merge, gather_dist, gather_dist_q,
+    pq_adc or fused_hop launch beside them; no beam_search launch where
+    not.
     Returns fn's result and the number of calls."""
     from repro_torch.kernels.beam_search import ops as bs
 
@@ -1090,7 +1277,7 @@ def count_searches(count, what: str, fn, *args, kernel: bool, **kwargs):
         out = count(fn, *args, **kwargs)
     counters = launch_counters()
     hop = {name: getattr(*counters[name]) for name in (
-        "beam_merge", "gather_dist", "pq_adc", "fused_hop")}
+        "beam_merge", "gather_dist", "gather_dist_q", "pq_adc", "fused_hop")}
     log(f"  {what}: {len(calls)} range_search calls; launches: beam_search "
         f"{bs.launches}, " + ", ".join(f"{n} {v}" for n, v in hop.items()))
     expect_launches("beam_search", bs.launches, len(calls) if kernel else 0,
@@ -1127,13 +1314,16 @@ def extend_blocks(inserted: int) -> int:
 def build_phase(n: int, n_query: int, device, count=None, *,
                 device_extend=True, tag="phase3"):
     """Build over the manifold data at the audio config; Table-1 after.
-    Returns the index, the base vectors, the queries and the launches of
-    ``mrng_occlusion`` in the build."""
+    With the device extension, one ``extend_select`` launch an extend
+    block and no ``mrng_occlusion`` launch.  Returns the index, the base
+    vectors, the queries and the launches of ``extend_select`` in the
+    build."""
     from repro_torch.configs.deg import DEG_PAPER_CONFIGS
     from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.build import build_deg
     from repro_torch.core.invariants import check_table1
     from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels.extend_select import ops as es_ops
     from repro_torch.kernels.mrng_occlusion import ops as occ_ops
 
     count = count or (lambda fn, *a, **kw: fn(*a, **kw))
@@ -1157,7 +1347,7 @@ def build_phase(n: int, n_query: int, device, count=None, *,
     if n_calls != waves:
         raise AssertionError(f"{n_calls} range_search calls for {waves} "
                              "insert waves")
-    occ = occ_ops.launches
+    sel, occ = es_ops.launches, occ_ops.launches
     st = idx.build_stats
     inserted = st["vertices"]
     blocks = extend_blocks(inserted)
@@ -1166,15 +1356,17 @@ def build_phase(n: int, n_query: int, device, count=None, *,
         f"{params.k_ext} eps_ext={params.eps_ext} wave_size={WAVE} "
         f"{mode} extension: {secs:.2f} s (search_s {st['search_s']:.2f}, "
         f"extend_s {st['extend_s']:.2f}, {inserted} vertices); "
-        f"mrng_occlusion launches {occ}"
+        f"extend_select launches {sel}, mrng_occlusion launches {occ}"
         + (f" for {blocks} extend blocks" if device_extend else ""))
     if device_extend:
-        expect_launches("mrng_occlusion", occ, blocks, "extend blocks")
+        expect_launches("extend_select", sel, blocks, "extend blocks")
+        expect_launches("mrng_occlusion", occ, 0, "extend blocks (the "
+                        "selection pass runs the lune test)")
     inv = check_table1(idx.builder)
     log(f"{tag} table-1: {inv}")
     if not all(inv.values()):
         raise AssertionError(f"Table-1 invariants broken: {inv}")
-    return idx, base, queries, occ
+    return idx, base, queries, sel
 
 
 def wave_search(idx, pts) -> np.ndarray:
@@ -1227,6 +1419,7 @@ def plain_kernels():
     from repro_torch.kernels.bag_lookup import ops as bag
     from repro_torch.kernels.beam_merge import ops as bm
     from repro_torch.kernels.beam_search import ops as bs
+    from repro_torch.kernels.extend_select import ops as es
     from repro_torch.kernels.fused_hop import ops as fh
     from repro_torch.kernels.gather_dist import ops as gd
     from repro_torch.kernels.gather_dist_q import ops as gdq
@@ -1236,7 +1429,7 @@ def plain_kernels():
 
     saved = [(m, name, getattr(m, name)) for m, name in
              ((bs, "beam_search"), (bm, "beam_merge"), (fh, "fused_hop"),
-              (gd, "gather_dist"),
+              (gd, "gather_dist"), (es, "extend_select"),
               (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
               (adc, "pq_adc"), (l2, "l2_topk"), (bag, "bag_lookup"))]
     try:
@@ -1415,8 +1608,8 @@ def quant_serve_phase(idx, queries, gt, count=None, *, k=K, batch=BATCH,
     the exact k-NN, hops and evals, through ``count``), and the idle share
     of one batch; then the first N_COMPARE queries under "multi-e4-fused"
     (through ``count``), which over a compressed store is the composed hop
-    with the visited filter: one beam_search launch a batch over fp16 and
-    pq, the host loop over sq8."""
+    with the visited filter: one beam_search launch a batch over every
+    store."""
     from repro_torch.configs.deg import QUANT_PRESETS, SEARCH_PRESETS
     from repro_torch.core.beam import search_kernel_eligible
     from repro_torch.core.metrics import recall_at_k

@@ -20,11 +20,11 @@ Queries (``core/search.py``), the insert-wave candidate searches (Alg. 3,
   with ``beam_merge``, and both give the same results.
 * on the card, :func:`search_kernel_eligible` picks the configurations
   whose whole search runs as one launch of the ``beam_search`` kernel in
-  place of the host loop: a CUDA tensor, a float32, fp16 or pq store and
-  the l2 or sqeuclidean metric, at a beam, exclude list, visited table
-  and pq table that fit one block's shared memory.  Either hop backend:
-  the fused hop is the composed hop with the visited filter, and the
-  kernel runs that.  The host loop keeps the rest: the sq8 store, the ip
+  place of the host loop: a CUDA tensor, any store (float32, fp16, sq8 or
+  pq) and the l2 or sqeuclidean metric, at a beam, exclude list, visited
+  table, sq8 scale and pq table that fit one block's shared memory.
+  Either hop backend: the fused hop is the composed hop with the visited
+  filter, and the kernel runs that.  The host loop keeps the rest: the ip
   and cos metrics, and a beam of thousands of entries or exclude ids.
   The choice is made from the configuration alone, before the search;
   both give the same final state.
@@ -299,24 +299,25 @@ def search_kernel_eligible(vectors, metric: str, hop_backend: str, device,
                            expand_width: int = 1, n_exclude: int = 0,
                            visited_size: int = 0) -> bool:
     """Does :func:`beam_search` run as one ``beam_search`` kernel launch?
-    On a CUDA device, for either hop backend over a float32, fp16 or pq
-    store (of at most ``MAX_SUBSPACES`` subspaces) under the l2 or
+    On a CUDA device, for either hop backend over a float32, fp16, sq8 or
+    pq store (of at most ``MAX_SUBSPACES`` subspaces) under the l2 or
     sqeuclidean metric, when one lane's beam of ``beam_width`` entries, its
     ``expand_width`` x ``degree`` candidates, its ``n_exclude`` excluded
-    ids, its ``visited_size``-slot table and the pq store's sub-distance
-    table fit the shared memory of one block; everything else runs the
-    host loop.  The shapes default to an empty beam, for a caller that
-    asks about the configuration alone."""
+    ids, its ``visited_size``-slot table, the sq8 store's scale and the pq
+    store's sub-distance table fit the shared memory of one block;
+    everything else runs the host loop.  The shapes default to an empty
+    beam, for a caller that asks about the configuration alone."""
     store = as_store(vectors)
     m_sub = store.data.shape[1] if store.codec == "pq" else 0
     return (torch.device(device).type == "cuda"
             and hop_backend in HOP_BACKENDS
-            and store.codec in ("float32", "fp16", "pq")
+            and store.codec in ("float32", "fp16", "sq8", "pq")
             and metric in ("l2", "sqeuclidean")
             and m_sub <= pq_ops.MAX_SUBSPACES
             and bs_ops.smem_bytes(store.dim, beam_width,
                                   expand_width * degree, n_exclude,
-                                  visited_size, expand_width, m_sub)
+                                  visited_size, expand_width, m_sub,
+                                  store.codec == "sq8")
             <= bs_ops.MAX_SMEM)
 
 
@@ -365,7 +366,7 @@ def beam_search(graph: DEGraph, vectors, queries: torch.Tensor,
             state.evals, state.visited, n_valid=graph.n, k=k,
             eps1=_eps1(eps), expand_width=expand_width, max_hops=max_hops,
             squared=metric == "sqeuclidean", hop_budget=hop_budget,
-            codebooks=store.codebooks))
+            scale=store.scale, codebooks=store.codebooks))
     return host_loop(state, graph, vectors, queries, exclude, k=k, eps=eps,
                      max_hops=max_hops, metric=metric,
                      expand_width=expand_width, hop_backend=hop_backend,

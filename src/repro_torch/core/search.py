@@ -85,9 +85,9 @@ def range_search(graph: DEGraph, vectors, queries: torch.Tensor,
       hop_backend: "composed" (``gather_dist`` per hop) or "fused" (the
         ``fused_hop`` kernel) on the host loop; both give the same
         results.  On the card the ``beam_search`` kernel takes either
-        over the float32, fp16 and pq stores under l2 and sqeuclidean
-        (``beam.search_kernel_eligible``); the sq8 store, ip and cos and
-        a lane too large for a block's shared memory keep the host loop.
+        over every store (float32, fp16, sq8, pq) under l2 and
+        sqeuclidean (``beam.search_kernel_eligible``); ip and cos and a
+        lane too large for a block's shared memory keep the host loop.
       hop_budget: optional (B,) int32 per-lane expansion caps.
     """
     n_ex = exclude.shape[1] if exclude is not None else 0

@@ -5,9 +5,10 @@ from an initialised beam to the final one.
 The loop is self-contained: it repeats radius, selection of the E first
 unchecked entries, adjacency gather, dedup (the beam broadcast, or the
 visited set's probes; the first occurrence when E > 1), scoring with
-``gather_dist_ref`` (over the pq store's code rows, the table sum of
-``pq_adc_ref`` from each lane's table, built once a search as the kernel
-builds it: the values ``pq_adc_ref`` gives on every hop), the visited
+``gather_dist_ref`` (over the sq8 store's code rows ``gather_dist_q_ref``;
+over the pq store's, the table sum of ``pq_adc_ref`` from each lane's
+table, built once a search as the kernel builds it: the values
+``pq_adc_ref`` gives on every hop), the visited
 insert and the merge with ``beam_merge_ref``.  Each lane runs until its
 own death (a hop without an active selection, after which the lane is
 frozen) or ``max_hops``; the lanes run side by side, and the host asks
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core import visited as visited_set
 from repro_torch.kernels.beam_merge.ref import beam_merge_ref
 from repro_torch.kernels.gather_dist.ref import gather_dist_ref
+from repro_torch.kernels.gather_dist_q.ref import gather_dist_q_ref
 from repro_torch.kernels.pq_adc.ref import pq_lut_sum_ref
 from repro_torch.quant.pq import adc_lut
 
@@ -54,6 +56,7 @@ def beam_search_ref(adjacency, rows, queries, exclude, ids, dists, checked,
                     k: int, eps1: float, expand_width: int, max_hops: int,
                     squared: bool = False,
                     hop_budget: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None,
                     codebooks: Optional[torch.Tensor] = None):
     """The search from an initialised beam; see ``ops.beam_search`` for
     the arguments.  Returns (ids, dists, checked, excluded, hops, evals,
@@ -90,9 +93,13 @@ def beam_search_ref(adjacency, rows, queries, exclude, ids, dists, checked,
         else:
             ok = vmask & ~(flat[:, :, None] == ids[:, None, :]).any(dim=2)
         safe = torch.where(ok, flat, 0)
-        nd = (gather_dist_ref(rows, safe, queries, squared=squared)
-              if lut is None else
-              pq_lut_sum_ref(rows, lut, safe, squared=squared))
+        if lut is not None:
+            nd = pq_lut_sum_ref(rows, lut, safe, squared=squared)
+        elif scale is not None:
+            nd = gather_dist_q_ref(rows, scale, safe, queries,
+                                   squared=squared)
+        else:
+            nd = gather_dist_ref(rows, safe, queries, squared=squared)
         keep = ok & (nd <= bound[:, None])
         cand_ids = torch.where(keep, flat, INVALID)
         cand_d = torch.where(keep, nd, _INF)

@@ -3,14 +3,16 @@
 // composed hop (radius, select, adjacency gather, dedup, score, visited
 // insert, merge) until it has no active selection or has looped max_hops
 // times, and returns its final beam state.  The rows are float32 or fp16
-// vectors, or the pq store's uint8 code rows scored through the lane's
+// vectors, the sq8 store's int8 code rows with their (m,) float32 scale,
+// or the pq store's uint8 code rows scored through the lane's
 // sub-distance table.  The fused preset runs here too: its hop is the
 // composed hop with the visited filter (core/beam.py::expand).
 //
 // Replaces, on this path, the Pallas TPU kernels
 // src/repro/kernels/beam_merge/beam_merge.py::beam_merge_pallas (:189),
 // src/repro/kernels/gather_dist/gather_dist.py::gather_dist_pallas (:35),
-// src/repro/kernels/pq_adc/pq_adc.py::pq_adc_pallas (:68) and
+// src/repro/kernels/gather_dist_q/gather_dist_q.py::gather_dist_q_pallas
+// (:37), src/repro/kernels/pq_adc/pq_adc.py::pq_adc_pallas (:68) and
 // src/repro/kernels/fused_hop/fused_hop.py::fused_hop_pallas (:114),
 // together with the loop around them, src/repro/core/beam.py:351-408
 // (one lax.while_loop of expand and alive).  Contract:
@@ -26,8 +28,8 @@
 // Design: one block of 8 warps per lane, for the whole search.  The beam
 // (ids, dists, checked and excluded flags, two copies that the merge
 // writes in turn), the query, the E * d candidates of a hop, the exclude
-// list, the visited table and, over the pq store, the lane's (m_sub, 256)
-// table stay in shared memory throughout.  The pq table is built once, at
+// list, the visited table, over the sq8 store the scale, and over the pq
+// store the lane's (m_sub, 256) table stay in shared memory throughout.  The pq table is built once, at
 // the start of the search, by pq_adc's device function; pq_adc rebuilds
 // it on every hop.  A hop:
 //   1. one warp finds the radius (the k-th valid, non-excluded entry) and
@@ -39,9 +41,10 @@
 //      beam as it stood at the start of the hop) without the visited set,
 //      the set's probes with it, and the first occurrence when E > 1;
 //   4. one warp per surviving position scores its row with
-//      repro::row_sq_l2 (a code row: repro::pq_row_sum) and finish_dist,
-//      the device functions of gather_dist and pq_adc, so distances are
-//      bit-identical to the host loop's;
+//      repro::row_sq_l2 (an sq8 code row: repro::row_sq_l2_q8; a pq code
+//      row: repro::pq_row_sum) and finish_dist, the device functions of
+//      gather_dist, gather_dist_q and pq_adc, with their vec choices, so
+//      distances are bit-identical to the host loop's;
 //   5. the visited insert of core/visited.py::insert: P rounds of read,
 //      claim by atomicMax (= scatter-amax, since INVALID is -1), re-read,
 //      with a barrier between each, so tables come out bit-identical;
@@ -73,18 +76,21 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 // Byte offsets of the shared-memory sections, each 16-byte aligned.
 // kernels/beam_search/ops.py::smem_bytes repeats this sum.
 struct Layout {
-  size_t misc, q, lut, keys[2], bid[2], nid, ex, vis, sel_pos, sel_id,
+  size_t misc, q, scale, lut, keys[2], bid[2], nid, ex, vis, sel_pos, sel_id,
       bchk[2], bexc[2], cflag, sel_act, total;
 };
 
-// m_sub: the pq store's subspaces, 0 for vector rows (no table).
+// m_sub: the pq store's subspaces, 0 for other rows (no table); sq8: the
+// rows are sq8 codes, whose (m,) scale is staged beside the query.
 __host__ __device__ inline Layout make_layout(int m, int L, int C, int X,
-                                              int V, int E, int m_sub) {
+                                              int V, int E, int m_sub,
+                                              bool sq8) {
   Layout o;
   size_t at = 0;
   const int T = L + C;
   o.misc = take(at, 16);
   o.q = take(at, 4 * static_cast<size_t>(m));
+  o.scale = take(at, sq8 ? 4 * static_cast<size_t>(m) : 0);
   o.lut = take(at, 4 * static_cast<size_t>(m_sub) * repro::kPqStride);
   for (int s = 0; s < 2; ++s) o.keys[s] = take(at, 4 * static_cast<size_t>(T));
   for (int s = 0; s < 2; ++s) o.bid[s] = take(at, 4 * static_cast<size_t>(L));
@@ -108,6 +114,7 @@ struct Params {
   const void* rows;
   long long n_rows;
   int m;                   // the query's width
+  const float* scale;      // (m,), sq8 rows only
   const float* codebooks;  // (m_sub, 256, dsub), pq rows only
   int m_sub, dsub;         // m_sub = 0 for vector rows
   const float* queries;
@@ -132,20 +139,22 @@ struct Params {
   float eps1;
 };
 
-// Row: float or __half (vector rows of m), or uint8_t (pq code rows of
-// m_sub bytes).
+// Row: float or __half (vector rows of m), signed char (sq8 code rows of
+// m), or uint8_t (pq code rows of m_sub bytes).
 template <typename Row>
 __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
   constexpr bool kPq = std::is_same_v<Row, uint8_t>;
+  constexpr bool kSq8 = std::is_same_v<Row, signed char>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = p.L, E = p.E, deg = p.deg, C = E * deg, T = L + C;
   const int m = p.m, X = p.X, V = p.V;
-  const Layout lay = make_layout(m, L, C, X, V, E, p.m_sub);
+  const Layout lay = make_layout(m, L, C, X, V, E, p.m_sub, kSq8);
   // misc: [0] the hop's bound r * eps1, [1] its active selections, [2]
   // its scored positions
   float* misc_f = reinterpret_cast<float*>(smem + lay.misc);
   int* misc_i = reinterpret_cast<int*>(smem + lay.misc);
   float* q_s = reinterpret_cast<float*>(smem + lay.q);
+  [[maybe_unused]] float* scale_s = reinterpret_cast<float*>(smem + lay.scale);
   [[maybe_unused]] float* lut = reinterpret_cast<float*>(smem + lay.lut);
   // the beam's two copies: the merge reads copy cur and writes the other
   // (selected, not indexed, so that no array goes to the stack)
@@ -172,6 +181,9 @@ __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
   const unsigned vmask = static_cast<unsigned>(V - 1);
 
   for (int i = tid; i < m; i += kThreads) q_s[i] = p.queries[b * m + i];
+  if constexpr (kSq8) {
+    for (int i = tid; i < m; i += kThreads) scale_s[i] = p.scale[i];
+  }
   for (int i = tid; i < L; i += kThreads) {
     keys(0)[i] = p.in_d[b * L + i];
     bid(0)[i] = p.in_i[b * L + i];
@@ -306,6 +318,9 @@ __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
       float s;
       if constexpr (kPq) {
         s = repro::pq_row_sum(lut, rows + id * p.m_sub, p.m_sub, lane);
+      } else if constexpr (kSq8) {
+        s = repro::row_sq_l2_q8<true>(rows + id * m, scale_s, q_s, m,
+                                      p.vec != 0, lane);
       } else {
         s = repro::row_sq_l2<true>(rows + id * m, q_s, m, p.vec != 0, lane);
       }
@@ -416,8 +431,8 @@ __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
 
 template <typename Row>
 int launch(const Params& p, int B, size_t smem, void* stream) {
-  if (smem != make_layout(p.m, p.L, p.E * p.deg, p.X, p.V, p.E,
-                          p.m_sub).total ||
+  if (smem != make_layout(p.m, p.L, p.E * p.deg, p.X, p.V, p.E, p.m_sub,
+                          std::is_same_v<Row, signed char>).total ||
       smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
@@ -434,11 +449,28 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The vec choice of the per-hop kernel the host loop would run on these
+// rows (gather_dist, gather_dist_q), from the same device pointers, so
+// that the sums run in the same order; pq rows take none.
+template <typename T>
+int vec_choice(const void* rows, const void* scale, const void* queries,
+               int m) {
+  if constexpr (std::is_same_v<T, signed char>) {
+    return repro::q8_vec(rows, scale, queries, m);
+  } else {
+    return (m % repro::per_load<T>() == 0) &&
+           ((reinterpret_cast<uintptr_t>(rows) |
+             reinterpret_cast<uintptr_t>(queries)) % 16 == 0);
+  }
+}
+
 }  // namespace
 
-// rows: (n_rows, m) float32 or fp16, or for beam_search_pq (n_rows, m_sub)
-// uint8 codes with (m_sub, 256, dsub) float32 codebooks, m = m_sub * dsub
-// (codebooks null and m_sub = dsub = 0 otherwise); adjacency (adj_rows,
+// rows: (n_rows, m) float32 or fp16, for beam_search_sq8 (n_rows, m) int8
+// codes with the (m,) float32 scale (null otherwise), or for
+// beam_search_pq (n_rows, m_sub) uint8 codes with (m_sub, 256, dsub)
+// float32 codebooks, m = m_sub * dsub (codebooks null and m_sub = dsub = 0
+// otherwise); adjacency (adj_rows,
 // deg) int32; queries (B, m) float32; exclude (B, X) int32; the state in
 // (in_*) and out (out_*): dists (B, L) float32, ids (B, L) int32, checked
 // and excluded (B, L) uint8 (torch.bool), hops and evals (B,) int32,
@@ -447,7 +479,8 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
 #define BEAM_SEARCH_ENTRY(NAME, T)                                           \
   REPRO_EXPORT int NAME(                                                     \
       const void* adjacency, long long adj_rows, int deg, const void* rows,  \
-      long long n_rows, int m, const void* codebooks, int m_sub, int dsub,   \
+      long long n_rows, int m, const void* scale, const void* codebooks,     \
+      int m_sub, int dsub,                                                   \
       const void* queries, const void* exclude, int X, const void* in_d,     \
       const void* in_i, const void* in_c, const void* in_x,                  \
       const void* in_hops, const void* in_evals,                             \
@@ -463,6 +496,7 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
     p.rows = rows;                                                           \
     p.n_rows = n_rows;                                                       \
     p.m = m;                                                                 \
+    p.scale = static_cast<const float*>(scale);                              \
     p.codebooks = static_cast<const float*>(codebooks);                      \
     p.m_sub = m_sub;                                                         \
     p.dsub = dsub;                                                           \
@@ -493,13 +527,11 @@ int launch(const Params& p, int B, size_t smem, void* stream) {
     p.max_hops = max_hops;                                                   \
     p.squared = squared;                                                     \
     p.eps1 = eps1;                                                           \
-    /* the vec choice of gather_dist, so the sums run in the same order */   \
-    p.vec = (m % repro::per_load<T>() == 0) &&                               \
-            ((reinterpret_cast<uintptr_t>(rows) |                            \
-              reinterpret_cast<uintptr_t>(queries)) % 16 == 0);              \
+    p.vec = vec_choice<T>(rows, scale, queries, m);                          \
     return launch<T>(p, B, static_cast<size_t>(smem_bytes), stream);         \
   }
 
 BEAM_SEARCH_ENTRY(beam_search_f32, float)
 BEAM_SEARCH_ENTRY(beam_search_f16, __half)
+BEAM_SEARCH_ENTRY(beam_search_sq8, signed char)
 BEAM_SEARCH_ENTRY(beam_search_pq, uint8_t)

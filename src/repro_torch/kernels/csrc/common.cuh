@@ -1,7 +1,9 @@
 // Shared by every kernel library of the port (see kernels/_build.py): the
-// row distances of gather_dist, fused_hop and beam_search, the pq table
-// and its row sum of pq_adc and beam_search, the merge order of beam_merge
-// and beam_search, and the visited set's probe hash.
+// row distances of gather_dist, gather_dist_q, fused_hop, mrng_occlusion,
+// beam_search and extend_select, the pq table and its row sum of pq_adc
+// and beam_search, the lune test of mrng_occlusion and extend_select, the
+// merge order of beam_merge and beam_search, and the visited set's probe
+// hash.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -129,9 +131,72 @@ __device__ __forceinline__ float row_sq_l2(const T* row, const float* q,
 template <typename T>
 constexpr int per_load() { return 16 / static_cast<int>(sizeof(T)); }
 
+// The squared distance of an sq8 code row of m int8 codes, dequantized by
+// the (m,) float32 scale, to a float32 query, as gather_dist_q computes it:
+// one warp, every lane returns the full sum.  Each value is code * scale
+// by an unfused multiply (__fmul_rn: never contracted into an FMA), so it
+// equals the plain version's dequantized value.  vec selects 4-byte code
+// loads with the matching float4 loads of scale and query (q8_vec).  The
+// scale and the query lie in shared memory if kSharedQ.
+template <bool kSharedQ = false>
+__device__ __forceinline__ float row_sq_l2_q8(
+    const signed char* __restrict__ row, const float* __restrict__ scale,
+    const float* __restrict__ q, int m, bool vec, int lane) {
+  float s = 0.f;
+  if (vec) {
+    const char4* r4 = reinterpret_cast<const char4*>(row);
+    const float4* s4 = reinterpret_cast<const float4*>(scale);
+    const float4* q4 = reinterpret_cast<const float4*>(q);
+    for (int i = lane; i < (m >> 2); i += 32) {
+      const char4 c = __ldg(r4 + i);
+      const float4 sc = load_q<kSharedQ>(s4 + i);
+      const float4 qq = load_q<kSharedQ>(q4 + i);
+      const float dx = __fmul_rn(c.x, sc.x) - qq.x;
+      const float dy = __fmul_rn(c.y, sc.y) - qq.y;
+      const float dz = __fmul_rn(c.z, sc.z) - qq.z;
+      const float dw = __fmul_rn(c.w, sc.w) - qq.w;
+      s = fmaf(dx, dx, s);
+      s = fmaf(dy, dy, s);
+      s = fmaf(dz, dz, s);
+      s = fmaf(dw, dw, s);
+    }
+  } else {
+    for (int i = lane; i < m; i += 32) {
+      const float dx = __fmul_rn(__ldg(row + i), load_q<kSharedQ>(scale + i)) -
+                       load_q<kSharedQ>(q + i);
+      s = fmaf(dx, dx, s);
+    }
+  }
+  return warp_sum(s);
+}
+
+// gather_dist_q's vec choice, from the device pointers of the code table,
+// the scale and the queries: 4-byte code loads need m % 4 == 0 and a
+// 4-byte aligned table, the float4 loads of scale and queries 16-byte
+// alignment.  Every kernel that scores sq8 rows takes it from the same
+// pointers, so that the sums run in the same order.
+__host__ __device__ inline bool q8_vec(const void* codes, const void* scale,
+                                       const void* queries, int m) {
+  return (m % 4 == 0) && reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
+         ((reinterpret_cast<uintptr_t>(scale) |
+           reinterpret_cast<uintptr_t>(queries)) % 16 == 0);
+}
+
 __device__ __forceinline__ float finish_dist(float s, bool squared) {
   s = fmaxf(s, 0.f);
   return squared ? s : sqrtf(s);
+}
+
+// The lune test of Alg. 2 as mrng_occlusion_ref computes it: does the
+// neighbor at distance dist from the new point, joined to the candidate by
+// an edge of weight w, occlude the candidate edge of length cand_d?
+// cand_d > max(dist, w), where torch.maximum propagates NaN (fmaxf would
+// drop it), so a NaN on either side occludes nothing.
+__device__ __forceinline__ bool lune_occludes(float cand_d, float dist,
+                                              float w) {
+  const float mx = (isnan(dist) || isnan(w)) ? __int_as_float(0x7fc00000)
+                                             : fmaxf(dist, w);
+  return cand_d > mx;
 }
 
 // The pq store's asymmetric distance, shared by pq_adc and beam_search so

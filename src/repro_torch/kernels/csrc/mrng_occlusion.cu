@@ -14,8 +14,11 @@
 // Design: one block per (b, i) with one warp per neighbor j.  The query
 // row, read by every warp of the block, is staged once in shared memory;
 // each neighbor row is read with coalesced 16-byte loads (m = 192 is 48
-// float4), summed in f32 and reduced with warp shuffles, and lane 0 writes
-// the distance and the flag.  The gathered rows never reach device memory.
+// float4), summed in f32 and reduced with warp shuffles
+// (repro::warp_sq_l2), and lane 0 writes the distance and the flag
+// (repro::lune_occludes).  The gathered rows never reach device memory.
+// The extension's selection pass runs this test inside extend_select.cu;
+// this kernel serves refinement's conformity test (mrng_conform_batch).
 #include "common.cuh"
 
 namespace {
@@ -41,36 +44,14 @@ __global__ void mrng_occlusion_kernel(const float* __restrict__ vectors,
     const long long pos = bi * d + j;
     long long id = nbr_ids[pos];
     id = id < 0 ? 0 : (id >= n_rows ? n_rows - 1 : id);
-    const float* __restrict__ row = vectors + id * m;
-    float s = 0.f;
-    if (vec4) {
-      const float4* r4 = reinterpret_cast<const float4*>(row);
-      const float4* q4 = reinterpret_cast<const float4*>(q_s);
-      for (int k = lane; k < (m >> 2); k += 32) {
-        const float4 x = __ldg(r4 + k);
-        const float4 y = q4[k];
-        const float dx = x.x - y.x, dy = x.y - y.y, dz = x.z - y.z,
-                    dw = x.w - y.w;
-        s = fmaf(dx, dx, s);
-        s = fmaf(dy, dy, s);
-        s = fmaf(dz, dz, s);
-        s = fmaf(dw, dw, s);
-      }
-    } else {
-      for (int k = lane; k < m; k += 32) {
-        const float dx = __ldg(row + k) - q_s[k];
-        s = fmaf(dx, dx, s);
-      }
-    }
-    s = repro::warp_sum(s);
+    // the row loop and the lune test of repro:: (common.cuh), which
+    // extend_select shares, so both give the same distances and flags
+    const float s =
+        repro::warp_sq_l2<true>(vectors + id * m, q_s, m, vec4 != 0, lane);
     if (lane == 0) {
       const float dist = repro::finish_dist(s, squared != 0);
-      const float w = weights[pos];
-      // torch.maximum propagates NaN (fmaxf would drop it)
-      const float mx = (isnan(dist) || isnan(w)) ? __int_as_float(0x7fc00000)
-                                                    : fmaxf(dist, w);
       nbr_dist[pos] = dist;
-      occl[pos] = cd > mx ? 1 : 0;
+      occl[pos] = repro::lune_occludes(cd, dist, weights[pos]) ? 1 : 0;
     }
   }
 }

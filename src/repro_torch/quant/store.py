@@ -9,7 +9,9 @@ behind one interface:
 * ``fp16`` — half-precision rows, gathered at half width and upcast in the
   ``gather_dist`` kernel;
 * ``sq8`` — int8 codes and a per-dimension scale, scored by the
-  ``gather_dist_q`` kernel, which dequantizes in registers;
+  ``gather_dist_q`` kernel on the host loop, which dequantizes in
+  registers; inside ``beam_search`` by the same row function when that
+  kernel takes the search (``core/beam.py::search_kernel_eligible``);
 * ``pq`` — uint8 codes (one byte per subspace) and shared
   ``(m_sub, 256, dsub)`` codebooks, scored by the ``pq_adc`` kernel on
   the host loop, which never decodes; inside ``beam_search`` when that

@@ -184,12 +184,11 @@ def _store(codec):
 @pytest.mark.parametrize("codec", ["float32", "fp16", "sq8", "pq"])
 @pytest.mark.parametrize("metric", ["l2", "sqeuclidean", "ip", "cos"])
 def test_routing_rule(device, hop_backend, codec, metric):
-    """Exactly a search over a float32, fp16 or pq store under l2 or
-    sqeuclidean on a CUDA device runs as one kernel launch, under either
-    hop backend (the fused hop is the composed hop with the visited
-    filter); the sq8 store, ip and cos keep the host loop."""
-    want = (device == "cuda" and codec in ("float32", "fp16", "pq")
-            and metric in ("l2", "sqeuclidean"))
+    """Exactly a search over any store (float32, fp16, sq8 or pq) under
+    l2 or sqeuclidean on a CUDA device runs as one kernel launch, under
+    either hop backend (the fused hop is the composed hop with the visited
+    filter); ip and cos keep the host loop."""
+    want = device == "cuda" and metric in ("l2", "sqeuclidean")
     assert beam.search_kernel_eligible(_store(codec), metric, hop_backend,
                                        torch.device(device)) == want
     if codec == "float32":   # a raw float tensor is the exact store

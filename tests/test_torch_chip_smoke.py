@@ -192,12 +192,19 @@ def test_phase2_compressed_checks(rehearsal, check, kw, shape):
     (dict(B=16, L=30, E=4, V=1024, hop="fused", what="multi-e4-fused"),
      "multi-e4-fused: B=16 L=30 E=4 k=10 eps=0.1 d=20 m=192 f32 V=1024 X=0 "
      "fused"),
+    (dict(B=16, L=40, rows="sq8", what="sq8-serving"),
+     "sq8-serving: B=16 L=40 E=1 k=10 eps=0.1 d=20 m=192 sq8 V=0 X=0 "
+     "composed"),
+    (dict(B=16, L=40, E=4, V=1024, rows="sq8", hop="fused",
+          what="sq8-serving multi-e4-fused"),
+     "E=4 k=10 eps=0.1 d=20 m=192 sq8 V=1024 X=0 fused"),
 ])
 def test_phase2_beam_search_checks(rehearsal, kw, shape):
     """The whole search's check on the CPU: the wrapper takes its plain
-    version, so the kernel side, the host loop (with pq_adc or fused_hop
-    where the check names them) and the plain version all agree, and no
-    launch is counted, neither of beam_search nor in the host loop."""
+    version, so the kernel side, the host loop (with gather_dist_q, pq_adc
+    or fused_hop where the check names them) and the plain version all
+    agree, and no launch is counted, neither of beam_search nor in the
+    host loop."""
     from repro_torch.kernels.beam_search import ops
 
     inp = cs.phase2_inputs("cpu", N=3000)
@@ -218,6 +225,48 @@ def test_phase2_beam_search_checks(rehearsal, kw, shape):
     assert r["bound_ms"] > 0 and r["bound_by"] == (
         "operations" if kw["B"] == cs.BATCH else "bytes")
     assert not any(r["host_launches"].values()), r["host_launches"]
+
+
+@pytest.mark.parametrize("kw, shape", [
+    (dict(W=16), "extend block: W=16 K=40 d=20 m=192"),
+    (dict(W=6, what="last block"), "last block: W=6 K=40"),
+    (dict(W=16, failed=True, what="failed lanes and the latch"),
+     "failed lanes and the latch: W=16 K=40"),
+])
+def test_phase2_extend_select_checks(rehearsal, kw, shape):
+    """The selection pass's check on the CPU: the wrapper and the two-step
+    path take their plain versions and agree with the plain version, no
+    launch is counted, and the failed-lane case fails two lanes and
+    latches at least one."""
+    from repro_torch.kernels.extend_select import ops
+
+    inp = cs.phase2_inputs("cpu", N=3000)
+    before = ops.launches
+    r = cs.check_extend_select(inp, "cpu", **kw)
+    assert ops.launches == before == 0
+    assert r["name"] == "extend_select" and shape in r["shape"]
+    assert "on 100.0000% of slots" in r["shape"] and "cluster 8" in r["shape"]
+    assert r["max_abs_err"] == 0.0 and r["tl"] is None
+    assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+    n_failed, n_latched = map(int, re.search(
+        r"(\d+) failed and (\d+) latched", r["shape"]).groups())
+    if kw.get("failed"):
+        assert n_failed == 2 and n_latched >= 1
+    else:
+        assert n_failed == 0
+
+
+def test_extend_select_is_counted_and_routed_to_plain():
+    from repro_torch.kernels.extend_select import ops
+
+    assert cs.launch_counters()["extend_select"] == (ops, "launches")
+    fn = ops.extend_select
+    with cs.plain_kernels():
+        assert ops.extend_select.keywords == {"impl": "ref"}
+    assert ops.extend_select is fn
+    assert cs.KERNELS["extend_select"] == (
+        "src/repro/kernels/mrng_occlusion/mrng_occlusion.py:50")
+    assert "gather_dist_q.py:37" in cs.KERNELS["beam_search"]
 
 
 def test_beam_search_is_counted_and_routed_to_plain():
@@ -244,12 +293,12 @@ def test_count_searches_counts_range_search_calls(rehearsal, served):
     rule = functools.partial(beam.search_kernel_eligible, idx._dev_vectors,
                              "l2")
     assert not rule("composed", "cpu")
-    # the kernel takes either hop over float32, fp16 and pq; sq8 and the
-    # ip metric keep the host loop
+    # the kernel takes either hop over every store; the ip metric keeps
+    # the host loop
     assert rule("composed", "cuda") and rule("fused", "cuda")
     from repro_torch.quant.store import make_store
 
-    for codec, want in (("fp16", True), ("pq", True), ("sq8", False)):
+    for codec, want in (("fp16", True), ("pq", True), ("sq8", True)):
         # not idx.store_for: phase 4b times the index's first pq fit
         store = make_store(idx._dev_vectors, codec, n=idx.n)
         for hop in beam.HOP_BACKENDS:
@@ -280,12 +329,14 @@ def _launch_counts(main=1, host=1):
 
 
 def test_main_path_launch_rule(monkeypatch):
-    """Kernels of the main path must launch there; gather_dist, pq_adc and
-    fused_hop, which serve only the host loop since beam_search takes the
-    float32, fp16 and pq searches, must launch no time there and at least
-    once in phase 2's host loops."""
+    """Kernels of the main path must launch there; gather_dist,
+    gather_dist_q, beam_merge, pq_adc and fused_hop, which serve only the
+    host loop since beam_search takes every l2 search over every store,
+    must launch no time there and at least once in phase 2's host
+    loops."""
     monkeypatch.setattr(cs, "expect_launches", EXPECT_LAUNCHES)
     assert set(cs.HOST_LOOP_ONLY) == {"gather_dist", "gather_dist[fp16]",
+                                      "gather_dist_q", "beam_merge",
                                       "fused_hop", "pq_adc"}
     cs.check_main_path_launches(*_launch_counts())
     for name in cs.HOST_LOOP_ONLY:
@@ -297,8 +348,8 @@ def test_main_path_launch_rule(monkeypatch):
         host[name] = 0
         with pytest.raises(AssertionError, match="host loops never"):
             cs.check_main_path_launches(launches, host)
-    for name in ("beam_search", "beam_merge", "gather_dist_q",
-                 "mrng_occlusion", "l2_topk", "bag_lookup"):
+    for name in ("beam_search", "extend_select", "mrng_occlusion",
+                 "l2_topk", "bag_lookup"):
         launches, host = _launch_counts()
         launches[name] = 0
         with pytest.raises(AssertionError, match="main path never"):
@@ -306,7 +357,7 @@ def test_main_path_launch_rule(monkeypatch):
 
 
 @pytest.mark.parametrize("beside", [None, "beam_merge", "gather_dist",
-                                    "pq_adc", "fused_hop"])
+                                    "gather_dist_q", "pq_adc", "fused_hop"])
 def test_count_searches_refuses_a_hop_kernel_beside_the_whole_search(
         monkeypatch, beside):
     """Where the kernel takes a piece's searches, one beam_search launch a
