@@ -3,10 +3,12 @@
 hold each against its plain PyTorch version, build an index at the
 paper's audio size, take the exact ground truth from the brute-force scan,
 serve queries and exploration sessions from the index, serve from its
-compressed stores (fp16, sq8, pq), build and serve the paper's baseline
-graphs, refine the index, delete vertices from it, and serve again; then
-serve the recsys models DIN and DCN-v2 at their published widths, their
-embedding bags through the bag_lookup kernel.
+compressed stores (fp16, sq8, pq), save the index and serve the restored
+copy through the query engine, recover a journaled index and resume a
+checkpointed build, build and serve the paper's baseline graphs, refine
+the index, delete vertices from it, and serve again; then serve the
+recsys models DIN and DCN-v2 at their published widths, their embedding
+bags through the bag_lookup kernel.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -110,19 +112,47 @@ Phases (any failure raises and exits non-zero):
      rows of field 2); every logit finite; the DIN batches and the three
      retrievals again through the plain versions (logits rtol 1e-5 atol
      1e-6; ids equal on RETRIEVAL_AGREE of the slots, the rest ties);
-  9. the kernels' JSON line, then the final JSON line.
+  9. (run after phase 6's serving comparisons, on the graph and stores
+     phases 4 and 4b served) persistence and the serving engine:
+     9a. idx.save() (seconds, bytes, each section's bytes) and
+     DEGIndex.load() on the card (seconds, beside the pq fit it skips);
+     adjacency, weights, vectors and every store's tensors torch.equal to
+     the live index's; "classic", "sq8-serving" and "pq-serving" served
+     from the restored index in batches of 256, ids, dists, hops and
+     evals torch.equal to the live index's and ids to phases 4 and 4b;
+     9b. QueryEngine.from_snapshot(k=10, eps=0.1, max_batch=256,
+     preset="classic"): warmup() seconds per bucket (8 to 256), the
+     10,000 queries through engine.search (40 flushes: 39 of 256, one of
+     16 padded to 16), ids equal to phase 4's on every slot and its
+     recall; flush p50/p99 per bucket, QPS, the idle share of one flush
+     of 256; bursts of 1, 3, 17 and 100 queries equal to their rows; a
+     codec="sq8" engine at sq8-serving's rerank width equal to phase
+     4b's ids; 8 exploration sessions of 5 steps; on the restored copy
+     engine.insert of 64 held-out queries, each its own nearest on the
+     next flush when searched from its first neighbor (the share found
+     from the medoid logged beside the share of 256 indexed rows found
+     so), and one engine.delete;
+     9c. at N_HOST rows: 3,000 built with the WAL on and snapshotted, 1,000
+     added in waves of 64, 16 removed, 32 refined; recover(snapshot,
+     wal) equal to the live index (adjacency, weights, vectors, RNG
+     stream, WAL cursor); a build checkpointed every 4 waves, resumed
+     from its last checkpoint, equal to the uninterrupted build; each
+     step's seconds;
+  10. the kernels' JSON line, then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
-exploration sessions, the refinement, the deletion and the recsys
-serving only;
+exploration sessions, the refinement, the deletion, phase 9's pieces
+(the restored index's serving, the engine's warm-up, flushes, bursts,
+sessions, insert and delete, the journaled and checkpointed builds and
+their recovery) and the recsys serving only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.  Each counted piece that searches is held to one beam_search
 launch for each of its range_search calls where the search kernel takes
 the configuration (any store under l2, either hop), with no beam_merge,
 gather_dist, gather_dist_q, pq_adc or fused_hop launch beside them, and
 to none elsewhere: one a wave of the build, 40 for 10,000 "classic"
-queries in batches of 256.  gather_dist, gather_dist_q, beam_merge,
+queries in batches of 256, one a flush of the engine.  gather_dist, gather_dist_q, beam_merge,
 pq_adc and fused_hop then serve only the host loop (ip, cos, oversize
 lanes): each must launch no time on the main path and at least once in
 phase 2's comparisons against the host loop.  A build with the device
@@ -223,6 +253,14 @@ HOST_LOOP_ONLY = ("gather_dist", "gather_dist[fp16]", "gather_dist_q",
                   "beam_merge", "fused_hop", "pq_adc")
 # phase 4b: the compressed stores served under the "classic" preset
 QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
+# phase 9: persistence and the serving engine on the audio-size index
+SNAPSHOT_SERVED = ("classic", "sq8-serving", "pq-serving")
+BURSTS = (1, 3, 17, 100)           # queries a burst, each one flush
+ENGINE_SESSIONS, ENGINE_STEPS = 8, 5
+N_INSERT = 64                      # held-out points inserted through the engine
+WAL_SNAP = 3_000                   # rows journaled before the snapshot
+WAL_REMOVE, WAL_REFINE = 16, 32
+CKPT_EVERY = 4                     # waves between checkpoints
 # DEGIndex.memory_stats() at the audio size (n=53,387, m=192), by
 # quant/codec.py::store_bytes; pq: 24 code bytes a row plus the codebooks
 AUDIO_STORE_BYTES = {"float32": 41_001_216, "fp16": 20_500_608,
@@ -2018,6 +2056,408 @@ def compare_plain_phase(idx, queries, served, wave_ids, explore_calls, *,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: persistence and the serving engine
+# ---------------------------------------------------------------------------
+def serve_tensors(idx, queries, name, *, k=K, batch=BATCH) -> dict:
+    """Every field of the search results of ``queries`` in batches under
+    the "classic" preset: the exact store for "classic", else the
+    QUANT_PRESETS entry ``name`` (its codec, rerank width and eps).  Each
+    field is the batches' tensors concatenated, on the index's device."""
+    import torch
+    from repro_torch.configs.deg import QUANT_PRESETS
+
+    quant = None if name == "classic" else QUANT_PRESETS[name]
+    kw = {} if quant is None else dict(quantized=quant.codec,
+                                       rerank_k=quant.rerank_k or None)
+    eps = EPS if quant is None or quant.eps is None else quant.eps
+    parts = [idx.search_batch(queries[lo : lo + batch], k=k, eps=eps, **kw)
+             for lo in range(0, len(queries), batch)]
+    return {f: torch.cat([getattr(r, f) for r in parts])
+            for f in ("ids", "dists", "hops", "evals")}
+
+
+def snapshot_sections(path) -> dict:
+    """Section -> (bytes the arrays hold, bytes they take in the file),
+    from the archive's own directory (nothing decompressed)."""
+    import zipfile
+
+    out: dict = {}
+    with zipfile.ZipFile(path) as z:
+        for info in z.infolist():
+            sec = info.filename.split("/")[0]
+            raw, packed = out.get(sec, (0, 0))
+            out[sec] = (raw + info.file_size, packed + info.compress_size)
+    return out
+
+
+def check_restored(live, loaded) -> list:
+    """The restored index's host rows, device tensors and every store's
+    tensors ``torch.equal`` to the live index's; returns what was held."""
+    import torch
+
+    n = live.n
+    if loaded.n != n or sorted(loaded._stores) != sorted(live._stores):
+        raise AssertionError(f"restored n={loaded.n} stores "
+                             f"{sorted(loaded._stores)}, live n={n} stores "
+                             f"{sorted(live._stores)}")
+    g, h = live.frozen(), loaded.frozen()
+    pairs = {"adjacency": (g.adjacency[:n], h.adjacency[:n]),
+             "weights": (g.weights[:n], h.weights[:n]),
+             "vectors": (live._dev_vectors[:n], loaded._dev_vectors[:n])}
+    for codec, s in live._stores.items():
+        t = loaded._stores[codec]
+        pairs[f"{codec} codes"] = (s.data[:n], t.data[:n])
+        for part in ("scale", "codebooks"):
+            if getattr(s, part) is not None:
+                pairs[f"{codec} {part}"] = (getattr(s, part),
+                                            getattr(t, part))
+    for what, (a, b) in pairs.items():
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"restored {what} differs from the live "
+                                 "index's")
+    if not (np.array_equal(live.builder.adjacency[:n],
+                           loaded.builder.adjacency[:n])
+            and np.array_equal(live.vectors[:n], loaded.vectors[:n])):
+        raise AssertionError("restored host rows differ")
+    if live._rng.bit_generator.state != loaded._rng.bit_generator.state:
+        raise AssertionError("restored RNG stream differs")
+    return list(pairs)
+
+
+def snapshot_phase(idx, queries, results: dict, path, device, count=None, *,
+                   batch=BATCH, pq_fit_s=None, names=SNAPSHOT_SERVED):
+    """Phase 9a: ``idx.save(path)`` and ``DEGIndex.load(path)`` on
+    ``device`` (seconds, the file's bytes and its sections); the restored
+    index's tensors ``torch.equal`` to ``idx``'s; then each of ``names``
+    served from the restored index (through ``count``, one
+    ``beam_search`` launch a ``range_search`` call where the kernel takes
+    it) ``torch.equal`` in ids, dists, hops and evals to the live index
+    on the same queries, and in ids to ``results[name]`` (phases 4 and
+    4b).  Returns the restored index and the save and load numbers."""
+    import torch
+    from repro_torch.configs.deg import QUANT_PRESETS
+    from repro_torch.core.beam import search_kernel_eligible
+    from repro_torch.core.build import DEGIndex
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    t0 = time.perf_counter()
+    count(idx.save, path)
+    save_s = time.perf_counter() - t0
+    secs = snapshot_sections(path)
+    log(f"phase9 save: n={idx.n} in {save_s:.3f} s, {os.path.getsize(path):,}"
+        " bytes on disk; sections (array bytes / compressed): " + ", ".join(
+            f"{s} {raw:,} / {packed:,}" for s, (raw, packed) in secs.items()))
+    t0 = time.perf_counter()
+    loaded = count(DEGIndex.load, path, device=device)
+    sync()
+    load_s = time.perf_counter() - t0
+    log(f"phase9 load on {device}: {load_s:.3f} s"
+        + ("" if pq_fit_s is None else
+           f" (the pq store's host fit it skips: {pq_fit_s:.2f} s)"))
+    held = check_restored(idx, loaded)
+    log(f"phase9 restored index torch.equal to the live one: "
+        f"{', '.join(held)}; RNG stream equal")
+    for name in names:
+        want = serve_tensors(idx, queries, name, batch=batch)
+        store = (loaded._dev_vectors if name == "classic" else
+                 loaded.store_for(QUANT_PRESETS[name].codec))
+        got, n_calls = count_searches(
+            count, f"phase9 restored serve {name}", serve_tensors, loaded,
+            queries, name, batch=batch,
+            kernel=search_kernel_eligible(store, "l2", "composed", device))
+        if n_calls != -(-len(queries) // batch):
+            raise AssertionError(f"{n_calls} range_search calls for "
+                                 f"{len(queries)} queries")
+        for f, t in got.items():
+            if not torch.equal(t, want[f]):
+                raise AssertionError(f"restored {name} {f} differ from the "
+                                     "live index's")
+        if not np.array_equal(got["ids"].cpu().numpy(), results[name]):
+            raise AssertionError(f"restored {name} ids differ from the "
+                                 "earlier phase's")
+        log(f"phase9 restored serve {name}: {len(queries)} queries, ids, "
+            "dists, hops and evals torch.equal to the live index's, ids to "
+            "the earlier phase's")
+    return loaded, dict(save_s=save_s, load_s=load_s,
+                        bytes=os.path.getsize(path), sections=secs)
+
+
+def flush_latencies(engine) -> dict:
+    """Bucket -> (flushes, p50 ms, p99 ms) of the engine's
+    ``serving_flush_latency_ms`` histograms."""
+    return {int(dict(m.labels)["bucket"]): (m.count, m.percentile(50.0),
+                                            m.percentile(99.0))
+            for m in engine.metrics.metrics()
+            if m.name == "serving_flush_latency_ms"}
+
+
+def engine_phase(path, queries, results: dict, gt, device, count=None, *,
+                 k=K, batch=BATCH, bursts=BURSTS, sessions=ENGINE_SESSIONS,
+                 steps=ENGINE_STEPS, n_insert=N_INSERT):
+    """Phase 9b: ``QueryEngine.from_snapshot(path)`` under "classic" at
+    ``max_batch=batch``: ``warmup()`` seconds per bucket; every query
+    through ``engine.search`` (through ``count``: one ``beam_search``
+    launch a flush), ids equal to ``results["classic"]`` on every slot and
+    the same recall; flush p50/p99 per bucket, QPS and the idle share of
+    one full flush; bursts of ``bursts`` queries equal to their rows; an
+    sq8 engine at sq8-serving's rerank width equal to
+    ``results["sq8-serving"]``; ``sessions`` exploration sessions of
+    ``steps`` steps (no repeats, no seed in its own results); then on the
+    restored copy ``engine.insert`` of ``n_insert`` held-out queries: on
+    the next flush each is its own nearest when searched from its first
+    neighbor, and the share found from the medoid is logged beside the
+    share of ``batch`` indexed rows found so before the insert (an
+    approximate search from the medoid misses some of either); then one
+    ``engine.delete``."""
+    from repro_torch.configs.deg import QUANT_PRESETS
+    from repro_torch.core.beam import search_kernel_eligible
+    from repro_torch.core.invariants import check_table1
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.serving import QueryEngine
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    t0 = time.perf_counter()
+    engine = count(QueryEngine.from_snapshot, path, device=device, k=k,
+                   eps=EPS, max_batch=batch, preset="classic")
+    idx = engine.index
+    log(f"phase9 engine from_snapshot: {time.perf_counter() - t0:.3f} s, "
+        f"buckets {engine.buckets}")
+    kernel = search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                    device)
+    warm = count(engine.warmup)
+    log("phase9 engine warmup: " + ", ".join(
+        f"{b} {s:.4f} s" for (b, _), s in sorted(warm.items())))
+    t0 = time.perf_counter()
+    (ids, _), n_calls = count_searches(count, "phase9 engine search",
+                                       engine.search, queries, kernel=kernel)
+    secs = time.perf_counter() - t0
+    flushes = -(-len(queries) // batch)
+    if n_calls != flushes or engine.stats.flushes != flushes:
+        raise AssertionError(f"{n_calls} range_search calls, "
+                             f"{engine.stats.flushes} flushes for "
+                             f"{len(queries)} queries at max_batch {batch}")
+    if not np.array_equal(ids, results["classic"]):
+        raise AssertionError("the engine's ids differ from phase 4's")
+    rec = recall_at_k(ids, gt)
+    lat, qps = flush_latencies(engine), engine.stats.qps
+    log(f"phase9 engine search: {len(queries)} queries in {flushes} flushes "
+        f"({secs:.3f} s wall, {qps:.1f} QPS over the flushes), "
+        f"ids equal to phase 4's on every slot, recall@{k} {rec:.4f}; "
+        "flush ms by bucket (flushes, p50, p99): " + "; ".join(
+            f"{b}: {c}, {p50:.3f}, {p99:.3f}" for b, (c, p50, p99)
+            in sorted(lat.items())))
+    t0 = time.perf_counter()
+    engine.search(queries[:batch])
+    wall = (time.perf_counter() - t0) * 1e3
+    idle_share(lambda: engine.search(queries[:batch]), wall,
+               f"phase9 one engine flush of {batch}")
+    lo = 0
+    for n in bursts:
+        (got, _), n_calls = count_searches(
+            count, f"phase9 burst of {n}", engine.search,
+            queries[lo : lo + n], kernel=kernel)
+        if n_calls != 1 or not np.array_equal(got,
+                                              results["classic"][lo : lo + n]):
+            raise AssertionError(f"a burst of {n}: {n_calls} flushes, ids "
+                                 "differ from their rows of the full flushes")
+        lo += n
+    log(f"phase9 bursts of {', '.join(map(str, bursts))}: each one flush, "
+        "ids equal to their rows of the full flushes")
+    sq8 = QUANT_PRESETS["sq8-serving"]
+    q8 = QueryEngine(idx, k=k, eps=EPS if sq8.eps is None else sq8.eps,
+                     max_batch=batch, preset="classic", codec=sq8.codec,
+                     rerank_k=sq8.rerank_k)
+    (ids8, _), _ = count_searches(
+        count, "phase9 sq8 engine search", q8.search, queries,
+        kernel=search_kernel_eligible(idx.store_for("sq8"), "l2",
+                                      "composed", device))
+    if not np.array_equal(ids8, results["sq8-serving"]):
+        raise AssertionError("the sq8 engine's ids differ from phase 4b's")
+    log(f"phase9 sq8 engine: {len(queries)} queries in "
+        f"{q8.stats.flushes} flushes, ids equal to phase 4b's sq8-serving")
+    count_searches(count, "phase9 engine sessions", engine_sessions, engine,
+                   sessions=sessions, steps=steps, kernel=kernel)
+    n0 = idx.n
+    probe = np.random.default_rng(1).choice(n0, size=batch, replace=False)
+    (got, _), _ = count_searches(count, "phase9 search indexed rows",
+                                 engine.search, idx.vectors[probe],
+                                 kernel=kernel)
+    self_hit = float((got[:, 0] == probe).mean())
+    pts = queries[-n_insert:]
+    new = n0 + np.arange(n_insert)
+    count_searches(count, f"phase9 engine insert of {n_insert}",
+                   engine.insert, pts, kernel=kernel)
+    (got, _), _ = count_searches(count, "phase9 search the inserted",
+                                 engine.search, pts, kernel=kernel)
+    found = int((got[:, 0] == new).sum())
+    # the new rows are wired in: a search seeded at a new vertex's first
+    # neighbor reaches it in one hop, so the next flush returns it first
+    seeds = [int(idx.builder.neighbors(v)[0]) for v in new]
+    futs, _ = count_searches(count, "phase9 search the inserted from a "
+                             "neighbor", engine_seeded, engine, pts, seeds,
+                             kernel=kernel)
+    reached = int(sum(int(f["ids"][0]) == v for f, v in zip(futs, new)))
+    degrees = {idx.builder.vertex_degree(v) for v in new}
+    log(f"phase9 engine insert: n {n0} -> {idx.n}; on the next flush "
+        f"{found} of {n_insert} inserted points their own nearest from the "
+        f"medoid (the restored index finds {self_hit:.4f} of {batch} indexed "
+        f"rows so), {reached} from their first neighbor; degrees {degrees}")
+    if (idx.n != n0 + n_insert or reached != n_insert
+            or degrees != {idx.params.degree}):
+        raise AssertionError(f"inserted: n {idx.n}, {reached} of {n_insert} "
+                             f"reached from a neighbor, degrees {degrees}")
+    ok, _ = count_searches(count, "phase9 engine delete", engine.delete,
+                           n0 // 2, kernel=kernel)
+    inv = check_table1(idx.builder)
+    if not ok or idx.n != n0 + n_insert - 1 or not all(inv.values()):
+        raise AssertionError(f"engine.delete: {ok}, n {idx.n}, {inv}")
+    log(f"phase9 engine delete of vertex {n0 // 2}: n {idx.n}, Table-1 "
+        "holds")
+    return engine, dict(warmup=warm, latency=lat, qps=qps, recall=rec,
+                        flush_wall_ms=wall, inserted_found=found,
+                        self_hit=self_hit)
+
+
+def engine_seeded(engine, queries, seeds) -> list:
+    """One flush of ``queries``, each searched from its own seed vertex
+    (a seeded request outside a session: the seed is not hidden)."""
+    futs = [engine.submit(q, seed_vertex=s) for q, s in zip(queries, seeds)]
+    engine.flush()
+    return futs
+
+
+def engine_sessions(engine, *, sessions=ENGINE_SESSIONS, steps=ENGINE_STEPS,
+                    seed=0) -> int:
+    """``sessions`` exploration sessions of ``steps`` steps through
+    ``engine.explore``, one flush a step: no session sees a vertex twice,
+    and no seed in its own results.  Returns the vertices seen."""
+    rng = np.random.default_rng(seed)
+    cur = [int(v) for v in rng.integers(0, engine.index.n, size=sessions)]
+    seen = [set() for _ in range(sessions)]
+    for step in range(steps):
+        futs = [engine.explore(v, session=f"s{i}")
+                for i, v in enumerate(cur)]
+        engine.flush()
+        for i, fut in enumerate(futs):
+            got = [int(x) for x in fut["ids"] if x != INVALID]
+            if not got or cur[i] in got or set(got) & seen[i]:
+                raise AssertionError(f"engine session {i} step {step}: "
+                                     f"{got} repeats {sorted(seen[i])} or "
+                                     f"its seed {cur[i]}")
+            seen[i].update(got)
+            seen[i].add(cur[i])
+            cur[i] = got[0]
+    total = sum(len(s) for s in seen)
+    log(f"phase9 engine explore: {sessions} sessions x {steps} steps, "
+        f"{total} distinct vertices, none repeated, no seed returned")
+    return total
+
+
+def wal_phase(base, device, tmp, count=None, *, n=N_HOST, n_snap=WAL_SNAP,
+              n_remove=WAL_REMOVE, n_refine=WAL_REFINE) -> dict:
+    """Phase 9c, on the first ``n`` rows of ``base`` at the audio config
+    in waves of WAVE: build ``n_snap`` rows with the WAL on and snapshot;
+    add the rest, remove ``n_remove`` vertices and refine ``n_refine``;
+    ``recover(snapshot, wal)`` equal to the live index (adjacency,
+    weights, vectors, RNG stream, WAL cursor).  Then a build of ``n`` rows
+    with ``enable_checkpoints(every_waves=CKPT_EVERY)``, resumed from its
+    last checkpoint, equal to the uninterrupted build.  Every step timed
+    and counted."""
+    from repro_torch.configs.deg import DEG_PAPER_CONFIGS
+    from repro_torch.core.build import DEGIndex
+    from repro_torch.persist import recover
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    params = DEG_PAPER_CONFIGS["audio"]
+    rows = np.ascontiguousarray(base[:n])
+    wal, snap = os.path.join(tmp, "wal.log"), os.path.join(tmp, "wal.npz")
+    secs = {}
+
+    def step(what, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = count(fn, *args, **kwargs)
+        sync()
+        secs[what] = time.perf_counter() - t0
+        return out
+
+    live = DEGIndex(rows.shape[1], params, capacity=n, device=device)
+    live.enable_wal(wal)
+    step("build", live.add, rows[:n_snap], wave_size=WAVE)
+    step("save", live.save, snap)
+    step("add", live.add, rows[n_snap:], wave_size=WAVE)
+    victims = np.random.default_rng(0).choice(live.n, size=n_remove,
+                                              replace=False)
+    step("remove", live.remove, victims)
+    step("refine", live.refine, n_refine)
+    rec = step("recover", recover, snap, wal, device=device)
+    compare_indexes("recovered", live, rec)
+    log(f"phase9 WAL: {n_snap} rows journaled and snapshotted, then "
+        f"{n - n_snap} added in waves of {WAVE}, {n_remove} removed, "
+        f"{n_refine} refined ({live._wal_seq} records); recover() equal to "
+        "the live index in adjacency, weights, vectors, RNG stream and "
+        "cursor; seconds: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in secs.items()))
+    ck = os.path.join(tmp, "ck_{waves}.npz")
+    whole = DEGIndex(rows.shape[1], params, capacity=n, device=device)
+    whole.enable_checkpoints(ck, every_waves=CKPT_EVERY)
+    step("checkpointed build", whole.add, rows, wave_size=WAVE)
+    waves = max(int(f[3:-4]) for f in os.listdir(tmp) if f.startswith("ck_"))
+    resumed = step("load checkpoint", DEGIndex.load,
+                   ck.format(waves=waves), device=device)
+    n_ck = resumed.n
+    step("resume", resumed.add, rows[n_ck:], wave_size=WAVE)
+    compare_indexes("resumed", whole, resumed)
+    log(f"phase9 checkpoints every {CKPT_EVERY} waves: resumed from wave "
+        f"{waves} (n={n_ck}), the resumed build equal to the uninterrupted "
+        "one; seconds: " + ", ".join(
+            f"{k} {secs[k]:.3f}" for k in ("checkpointed build",
+                                           "load checkpoint", "resume")))
+    return secs
+
+
+def compare_indexes(what: str, want, got) -> None:
+    """Adjacency, weights and vectors equal on the host, and the RNG
+    stream and WAL cursor."""
+    n = want.n
+    same = (got.n == n
+            and np.array_equal(got.builder.adjacency[:n],
+                               want.builder.adjacency[:n])
+            and np.array_equal(got.builder.weights[:n],
+                               want.builder.weights[:n])
+            and np.array_equal(got.vectors[:n], want.vectors[:n]))
+    if not same:
+        raise AssertionError(f"the {what} index's rows differ")
+    if (got._rng.bit_generator.state != want._rng.bit_generator.state
+            or got._wal_seq != want._wal_seq):
+        raise AssertionError(f"the {what} index's RNG stream or WAL cursor "
+                             "differs")
+
+
+def served_ids(served, quant_served) -> dict:
+    """Phase 4's "classic" ids and phase 4b's ids of each store, by name."""
+    return {"classic": served["classic"]["ids"],
+            **{name: r["ids"] for name, r in quant_served.items()}}
+
+
+def persist_serve_phase(idx, base, queries, served, quant_served, device,
+                        count=None) -> dict:
+    """Phase 9: 9a, 9b and 9c in a temporary directory (removed after)."""
+    import tempfile
+
+    results = served_ids(served, quant_served)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "audio.npz")
+        _, snap = snapshot_phase(idx, queries, results, path, device, count,
+                                 pq_fit_s=quant_served["pq-serving"]["fit_s"])
+        _, eng = engine_phase(path, queries, results, served["gt"], device,
+                              count)
+        wal_dir = os.path.join(tmp, "wal")
+        os.mkdir(wal_dir)
+        wal = wal_phase(base, device, wal_dir, count)
+    return dict(snapshot=snap, engine=eng, wal=wal)
+
+
+# ---------------------------------------------------------------------------
 # phase 8: recsys serving (DIN and DCN-v2) and the bag_lookup kernel
 # ---------------------------------------------------------------------------
 def peak_memory(reset: bool = False) -> int | None:
@@ -2395,6 +2835,11 @@ def main(argv=None) -> int:
     compare_plain_phase(idx, queries, served, wave_ids, explore_calls)
     compare_quant_phase(idx, queries, served["gt"], quant_served)
     stamp("phase 6, serving part")
+    # on the graph and stores phases 4 and 4b served, before refinement
+    # changes them
+    persist_serve_phase(idx, base, queries, served, quant_served, device,
+                        count)
+    stamp("phase 9")
     baselines_phase(base, queries, device, count)
     stamp("phase 4c")
     refine_phase(idx, queries, served["gt"], device, count)
@@ -2406,6 +2851,7 @@ def main(argv=None) -> int:
     compare_extend_phase(device)
     stamp("phase 6, build part")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi)                    # the card again, beside the run's end
 
     print(json.dumps({"kernels": kernel_rows(checks, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {

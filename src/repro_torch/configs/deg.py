@@ -1,5 +1,6 @@
 """DEG hyperparameters from the paper (Table 3) keyed by dataset analogue,
-the serving-side compressed-store presets and the query-engine presets.
+the serving-side compressed-store presets, the query-engine presets and
+the serving SLO presets.
 
 The JAX package's ``hop_backend`` values map to the port's as
 ``"jnp"`` -> ``"composed"`` and ``"pallas"`` -> ``"fused"``; each preset
@@ -78,4 +79,44 @@ SEARCH_PRESETS = {
     "multi-e4": SearchPreset(expand_width=4),
     "multi-e2-visited": SearchPreset(expand_width=2, visited_size=2048),
     "multi-e4-fused": SearchPreset(expand_width=4, hop_backend="fused"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingPreset:
+    """Continuous-batching scheduler configuration, as the JAX package
+    keeps it for its async engine (not ported yet, ROADMAP A9); the sync
+    ``serving.QueryEngine`` reads ``max_batch`` and ``bucket_floor``.
+
+    ``max_batch`` bounds one flush; batches are padded to power-of-two
+    buckets from ``bucket_floor`` up (``serving/buckets.py``).
+    ``deadline_ms`` is the default per-request SLO (None = no deadline):
+    a request whose deadline minus ``slack_ms`` (plus the measured flush
+    latency) is near forces a flush; one whose deadline has already
+    expired at dispatch is searched under ``partial_hops`` expansions and
+    returned flagged partial instead of being dropped.  ``linger_ms`` is
+    the max time the scheduler holds an underfull batch waiting for
+    coalescing."""
+
+    max_batch: int = 64
+    bucket_floor: int = 8
+    deadline_ms: float | None = 50.0
+    slack_ms: float = 3.0
+    linger_ms: float = 2.0
+    partial_hops: int = 8
+    pipeline_depth: int = 2
+
+
+# SLO presets of the serving front end: interactive trades batch occupancy
+# for latency, throughput the reverse; ci-quick is the deterministic smoke
+# configuration
+SLO_PRESETS = {
+    "interactive": ServingPreset(max_batch=32, bucket_floor=4,
+                                 deadline_ms=15.0, linger_ms=1.0,
+                                 partial_hops=6),
+    "balanced": ServingPreset(),
+    "throughput": ServingPreset(max_batch=128, bucket_floor=16,
+                                deadline_ms=None, linger_ms=5.0),
+    "ci-quick": ServingPreset(max_batch=16, bucket_floor=4,
+                              deadline_ms=500.0, linger_ms=1.0),
 }

@@ -21,15 +21,23 @@ vectorized apply, and a host completion of the lanes a conflict left short.
 randomness is numpy (``default_rng(0)`` entry vertices, the refinement
 seed), so with the same inputs a build or a refinement replays the JAX
 package's.
+
+Persistence (``persist/``): :meth:`DEGIndex.save` / :meth:`DEGIndex.load`
+write and read the JAX package's snapshot format;
+:meth:`DEGIndex.enable_wal` journals every mutation unit before it is
+applied, so ``persist.recover(snapshot, wal)`` is bit-identical to the
+uninterrupted index; :meth:`DEGIndex.enable_checkpoints` snapshots the
+index at wave boundaries.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.obs import clock
 
 from .graph import DEGraph, GraphBuilder, INVALID, complete_graph
 from .mrng import check_mrng_candidate
@@ -111,9 +119,30 @@ class DEGIndex:
         # per-stage wall time of _insert_wave (candidate search vs vertex
         # extension)
         self.build_stats = {"search_s": 0.0, "extend_s": 0.0, "vertices": 0}
-        # running totals of refine_sweep, in place of the JAX package's obs
-        # counters (not ported)
+        # running totals of refine_sweep (whether or not a registry is
+        # attached)
         self.refine_stats = {"vertices": 0, "edge_tasks": 0, "improved": 0}
+        # optional obs.MetricsRegistry: when attached, insert waves and
+        # refine sweeps record their stage spans and counters into it under
+        # the JAX package's names; None (the default) costs a None check
+        self.metrics = None
+        # mid-build checkpointing (persist/snapshot.py): every insert wave
+        # and refine chunk ticks the counter; when due, the full index state
+        # is snapshotted at the wave boundary (the only mid-build points
+        # where the graph invariants hold)
+        self._ckpt_path = None
+        self._ckpt_every = 0
+        self._wave_counter = 0
+        # mutation WAL (persist/wal.py): when enabled, every mutation unit
+        # (bootstrap take / insert wave / remove / refine) is journaled
+        # before it is applied.  _wal_replay holds the record being
+        # re-applied (verify, don't re-append); _wal_op_active suppresses
+        # checkpoint saves inside a journaled op (a snapshot there would
+        # advance the cursor past a half-applied record)
+        self._wal = None
+        self._wal_seq = 0
+        self._wal_replay = None
+        self._wal_op_active = False
 
     # -- sizes -------------------------------------------------------------
     @property
@@ -155,6 +184,15 @@ class DEGIndex:
         ``builder.freeze()`` for a snapshot that must survive mutations."""
         return self.builder.device_graph()
 
+    def acquire_view(self):
+        """The view a serving flush searches: the index itself (the
+        single-writer mode; epoch publishing is not ported).  Pass it back
+        to :meth:`release_view` once the results are on the host."""
+        return self
+
+    def release_view(self, view) -> None:
+        """Nothing to release in the single-writer mode."""
+
     # -- insertion -----------------------------------------------------------
     def add(self, points: np.ndarray, wave_size: int = 1) -> None:
         """Insert points (Alg. 3). ``wave_size>1`` enables bulk build."""
@@ -169,6 +207,9 @@ class DEGIndex:
         # bootstrap: K_{d+1} complete graph (Sec. 5.1)
         if self.builder is None:
             take = min(d + 1 - len(self._pending), points.shape[0])
+            if take:
+                self._wal_record("add", {"wave_size": int(wave_size)},
+                                 {"points": points[:take]})
             self._pending.extend(points[:take])
             i = take
             if len(self._pending) == d + 1:
@@ -180,6 +221,11 @@ class DEGIndex:
                 self._pending = []
         while i < points.shape[0]:
             w = min(wave_size, points.shape[0] - i)
+            # one WAL record per wave, durable before the wave mutates
+            # anything, so the end-of-wave checkpoint sees a cursor that
+            # covers exactly the applied waves
+            self._wal_record("add", {"wave_size": int(w)},
+                             {"points": points[i : i + w]})
             self._insert_wave(points[i : i + w])
             i += w
 
@@ -189,13 +235,13 @@ class DEGIndex:
         self.vectors[start : start + W] = pts
         self._put_rows(pts, start)
         # one batched candidate search for the whole wave (pre-wave graph)
-        t0 = time.perf_counter()
+        t0 = clock.now()
         seeds = np.full((W, 1), self._entry_vertex(), dtype=np.int32)
         res = self.search_batch(pts, seeds, k=self.params.k_ext,
                                 eps=self.params.eps_ext)
         ids = res.ids.cpu().numpy()
         dists = res.dists.cpu().numpy()
-        t1 = time.perf_counter()
+        t1 = clock.now()
         use_device = self.params.device_extend
         block = max(int(self.params.extend_block), 1) if use_device else W
         for j0 in range(0, W, block):
@@ -227,10 +273,18 @@ class DEGIndex:
                         [int(x) for x in live],
                         [float(x) for x in self.builder.neighbor_weights(v)])
                 self._post_insert(v, new_edges, ids[j])
-        t2 = time.perf_counter()
+        t2 = clock.now()
         self.build_stats["search_s"] += t1 - t0
         self.build_stats["extend_s"] += t2 - t1
         self.build_stats["vertices"] += W
+        if self.metrics is not None:
+            # the same stamps as build_stats, as per-wave histograms
+            self.metrics.histogram("build_wave_search_ms").observe(
+                (t1 - t0) * 1e3)
+            self.metrics.histogram("build_wave_extend_ms").observe(
+                (t2 - t1) * 1e3)
+            self.metrics.counter("build_vertices_total").inc(W)
+        self._checkpoint_tick()
 
     def _post_insert(self, v: int, new_edges, cand_ids) -> None:
         if not self.params.optimize_new:
@@ -388,25 +442,46 @@ class DEGIndex:
 
         id_list = [int(v) for v in
                    (ids if hasattr(ids, "__iter__") else [ids])]
+        self._wal_record("remove", {"refine_after": int(refine_after)},
+                         {"ids": np.asarray(id_list, np.int64)})
         self._medoid = None
         self._stores = {}
-        return delete_vertices(self, id_list, refine_after=refine_after)
+        self._wal_op_active = True
+        try:
+            return delete_vertices(self, id_list, refine_after=refine_after)
+        finally:
+            self._wal_op_active = False
 
     # -- continuous refinement (Alg. 5) ---------------------------------------
     def refine(self, iterations: int, seed: Optional[int] = None) -> int:
         """Continuous edge optimization (Alg. 5) over ``iterations`` vertices
         drawn with ``numpy.random.default_rng(seed)``, through the batched
         path of ``optimize.refine_sweep``.  Returns the number of improved
-        edges."""
+        edges.  With the WAL on, ``seed=None`` is resolved from the build
+        RNG stream (a replayable run cannot depend on OS entropy)."""
         from .optimize import refine_sweep
 
         if self.builder is None or self.builder.n <= self.builder.degree + 1:
             return 0
+        journaled = self._wal is not None or self._wal_replay is not None
+        drew = seed is None
+        if drew and journaled:
+            # replay restores the stream from the snapshot, so it re-draws
+            # this seed exactly
+            seed = int(self._rng.integers(0, 2**31 - 1))
+        self._wal_record("refine",
+                         {"iterations": int(iterations),
+                          "seed": None if seed is None else int(seed),
+                          "drew": drew}, {})
         rng = np.random.default_rng(seed)
         vertices = rng.integers(0, self.builder.n, size=int(iterations))
-        return refine_sweep(self, vertices, i_opt=self.params.i_opt,
-                            k_opt=self.params.k_opt,
-                            eps_opt=self.params.eps_opt)
+        self._wal_op_active = journaled
+        try:
+            return refine_sweep(self, vertices, i_opt=self.params.i_opt,
+                                k_opt=self.params.k_opt,
+                                eps_opt=self.params.eps_opt)
+        finally:
+            self._wal_op_active = False
 
     # -- compressed store views ---------------------------------------------
     def store_for(self, codec: str):
@@ -434,6 +509,87 @@ class DEGIndex:
             out[f"{name}_bytes"] = b
             out[f"{name}_ratio"] = exact / b if b else 0.0
         return out
+
+    # -- persistence (persist/snapshot.py owns the format) -------------------
+    def save(self, path) -> None:
+        """Snapshot the complete index state (graph, vectors, materialized
+        compressed stores, params, RNG/build counters, medoid cache, WAL
+        cursor) to one versioned npz, in the JAX package's format."""
+        from repro_torch.persist import save_index
+
+        save_index(self, path)
+
+    @classmethod
+    def load(cls, path, params: "DEGParams | None" = None,
+             capacity: Optional[int] = None, device="cuda") -> "DEGIndex":
+        """Restore an index saved by :meth:`save` (or by the JAX package)
+        onto ``device``: search-identical and immediately mutable."""
+        from repro_torch.persist import load_index
+
+        return load_index(path, params=params, capacity=capacity,
+                          device=device)
+
+    def enable_wal(self, path, sync: bool = True) -> None:
+        """Journal every future mutation unit to ``path`` (append-only,
+        CRC-framed, ``persist/wal.py``) before applying it.  Recovery is
+        ``persist.recover(snapshot, wal)``: load the snapshot, replay the
+        records past its cursor, bit-identical to the uninterrupted
+        index."""
+        from repro_torch.persist.wal import WALWriter
+
+        self._wal = WALWriter(path, sync=sync)
+
+    def _wal_record(self, op: str, meta: dict, arrays: dict) -> None:
+        """Journal one mutation unit, or during replay verify the op
+        against the record being re-applied instead of re-appending it.
+        No-op when the WAL is off (the sequence counter advances only for
+        journaled ops, keeping snapshot cursors aligned)."""
+        rec = self._wal_replay
+        if rec is not None:
+            from repro_torch.persist.wal import WALError
+
+            if rec.op != op:
+                raise WALError(
+                    f"replay mismatch at seq {rec.seq}: journal says "
+                    f"{rec.op!r}, index replayed {op!r}")
+            if op == "refine" and rec.meta.get("seed") != meta.get("seed"):
+                raise WALError(
+                    f"replay mismatch at seq {rec.seq}: refine seed "
+                    f"{meta.get('seed')} != journaled "
+                    f"{rec.meta.get('seed')} — RNG stream diverged "
+                    "(snapshot and WAL don't belong together?)")
+            self._wal_seq += 1
+            return
+        if self._wal is not None:
+            self._wal.append(self._wal_seq, op, meta, arrays)
+            self._wal_seq += 1
+
+    def enable_checkpoints(self, path, every_waves: int = 1) -> None:
+        """Snapshot the full index to ``path`` every ``every_waves`` insert
+        waves / refine chunks (at wave boundaries, where the graph
+        invariants hold).  ``path`` may contain ``{waves}`` / ``{n}``
+        placeholders to keep a checkpoint series instead of overwriting.
+        ``every_waves=0`` disables."""
+        try:
+            str(path).format(waves=0, n=0)   # fail at config time, not
+        except (KeyError, IndexError) as e:  # waves deep into the build
+            raise ValueError(
+                f"bad checkpoint path template {path!r}: only {{waves}} and "
+                f"{{n}} placeholders are supported ({e!r})")
+        self._ckpt_path = path
+        self._ckpt_every = int(every_waves)
+
+    def _checkpoint_tick(self) -> None:
+        self._wave_counter += 1
+        if (self._ckpt_path is not None and self._ckpt_every > 0
+                and self._wave_counter % self._ckpt_every == 0
+                # inside a journaled remove/refine the WAL cursor already
+                # covers the op but the graph is mid-surgery: a snapshot
+                # here could not be continued by replay.  Waves are safe
+                # (one record per wave).  Replay itself never writes.
+                and not self._wal_op_active and self._wal_replay is None):
+            self.save(str(self._ckpt_path).format(
+                waves=self._wave_counter, n=self.n))
 
     # -- queries --------------------------------------------------------------
     def search_batch(self, queries: np.ndarray,

@@ -265,6 +265,23 @@ class GraphBuilder:
         self.adjacency, self.weights = adj, w
         self.invalidate_device()
 
+    # -- snapshot / rollback (Alg. 4 step 6 "revert all changes") --------
+    def snapshot(self, vertices) -> dict:
+        """Copies of the rows of ``vertices``, for :meth:`restore`."""
+        vs = sorted(set(int(v) for v in vertices))
+        return {
+            "vs": vs,
+            "adj": self.adjacency[vs].copy(),
+            "w": self.weights[vs].copy(),
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Write back the rows a :meth:`snapshot` copied; the rows are
+        marked dirty for the next ``device_graph()``."""
+        self.adjacency[snap["vs"]] = snap["adj"]
+        self.weights[snap["vs"]] = snap["w"]
+        self.mark_dirty(*snap["vs"])
+
     # -- conversion ------------------------------------------------------
     def freeze(self) -> DEGraph:
         """An independent device snapshot, safe to hold across later

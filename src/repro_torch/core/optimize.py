@@ -17,11 +17,13 @@ prefetched search and scan see the pre-chunk graph, a bounded staleness:
 every structural decision is validated again against the live builder, so
 only candidate quality can drift, never the invariants.
 
-Left out of the JAX module (``src/repro/core/optimize.py``), whose
-subsystems are not ported (ROADMAP A8/A9): the checkpoint and epoch-publish
-ticks at chunk boundaries, the WAL journaling of ``DEGIndex.refine``, and
-the ``obs`` metrics of a sweep (chunk span, edge tasks, improved edges);
-the totals of the last are kept in ``DEGIndex.refine_stats``.
+Every chunk boundary and the end of a sweep tick the index's checkpoint
+cadence (``DEGIndex._checkpoint_tick``), and a sweep records its ``obs``
+metrics (chunk span, edge tasks, improved edges, vertices) into
+``DEGIndex.metrics`` when one is attached, under the JAX package's names;
+``DEGIndex.refine_stats`` keeps the same totals either way.  Left out of
+the JAX module (``src/repro/core/optimize.py``): the epoch-publish tick
+at chunk boundaries, which waits for epoch publishing (ROADMAP A9).
 
 Note on Alg. 4 line 30: the paper's pseudocode says ``add (v1,v5),(v1,v3)``
 which contradicts the prose of step (4a) ("the edge (vE,vF) is replaced with
@@ -35,6 +37,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.obs import clock
 
 from .build import DEGIndex, np_pair_dist
 from .graph import INVALID
@@ -240,9 +244,15 @@ def refine_sweep(index: DEGIndex, vertices: Sequence[int], *,
     if b is None or b.n <= b.degree + 1:
         return 0
     dev = index.device
+    metrics = index.metrics
     improved = 0
     verts = [int(v) for v in vertices]
     for c0 in range(0, len(verts), chunk):
+        t_chunk = clock.now()
+        if c0:
+            # a chunk boundary is an invariant-clean point: the same
+            # checkpoint cadence as _insert_wave
+            index._checkpoint_tick()
         verts_c = verts[c0:c0 + chunk]
         g = b.device_graph()
         conform = mrng_conform_batch(
@@ -287,6 +297,15 @@ def refine_sweep(index: DEGIndex, vertices: Sequence[int], *,
                 first_search=(lane_ids, lane_d), first_found=first_found)
             improved += int(changed)
             clean = clean and not changed
+        if metrics is not None:
+            metrics.histogram("refine_chunk_ms").observe(
+                (clock.now() - t_chunk) * 1e3)
+            metrics.counter("refine_edge_tasks_total").inc(len(tasks))
     index.refine_stats["vertices"] += len(verts)
     index.refine_stats["improved"] += improved
+    if metrics is not None and verts:
+        metrics.counter("refine_improved_edges_total").inc(improved)
+        metrics.counter("refine_vertices_total").inc(len(verts))
+    if verts:
+        index._checkpoint_tick()
     return improved

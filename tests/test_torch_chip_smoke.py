@@ -564,3 +564,133 @@ def test_recsys_phase(recsys):
     assert ids.shape == (1, 25) and int(ids.max()) < 25
     assert "bag_lookup" in launches
     assert all(n == 0 for n in launches.values()), launches  # CPU: plain
+
+
+# ---------------------------------------------------------------------------
+# phase 9: persistence and the serving engine
+# ---------------------------------------------------------------------------
+def _counted():
+    ops = cs.launch_counters()
+    launches = dict.fromkeys(ops, 0)
+    return launches, functools.partial(cs.counted, ops, launches)
+
+
+@pytest.fixture(scope="module")
+def persisted(rehearsal):
+    """Phase 9's inputs at a small size: a build of N_SMALL rows, phase
+    4's "classic" ids and phase 4b's three stores and their ids."""
+    idx, base, queries, _ = cs.build_phase(N_SMALL, 160, "cpu")
+    out = cs.serve_phase(idx, base, queries, "cpu", batch=BATCH,
+                         presets=("classic",))
+    quant = cs.quant_serve_phase(idx, queries, out["gt"], batch=BATCH)
+    return idx, base, queries, out, quant
+
+
+def test_phase9_snapshot(persisted, tmp_path):
+    idx, _, queries, out, quant = persisted
+    launches, count = _counted()
+    path = str(tmp_path / "i.npz")
+    loaded, info = cs.snapshot_phase(
+        idx, queries, cs.served_ids(out, quant), path, "cpu", count,
+        batch=BATCH, pq_fit_s=quant["pq-serving"]["fit_s"])
+    assert loaded.n == idx.n and loaded.device.type == "cpu"
+    assert info["bytes"] == os.path.getsize(path) and info["save_s"] > 0
+    secs = info["sections"]
+    assert set(secs) == {"__meta__.npy", "vectors", "graph", "store_fp16",
+                         "store_sq8", "store_pq"}
+    raw = {s: r for s, (r, _) in secs.items()}
+    n = idx.n
+    assert n * cs.DIM * 4 < raw["vectors"] < n * cs.DIM * 4 + 256
+    assert 2 * n * 20 * 4 < raw["graph"] < 2 * n * 20 * 4 + 512
+    assert all(v == 0 for v in launches.values()), launches  # CPU: plain
+    # a restored tensor that differs is caught
+    loaded._stores["sq8"].scale[0] += 1.0
+    with pytest.raises(AssertionError, match="sq8 scale"):
+        cs.check_restored(idx, loaded)
+
+
+def test_phase9_engine(persisted, tmp_path):
+    idx, _, queries, out, quant = persisted
+    path = str(tmp_path / "i.npz")
+    idx.save(path)
+    launches, count = _counted()
+    engine, info = cs.engine_phase(
+        path, queries, cs.served_ids(out, quant), out["gt"], "cpu", count,
+        batch=BATCH, bursts=(1, 3, 17, 30), sessions=4, steps=3, n_insert=8)
+    assert engine.buckets == (8, 16, 32)
+    assert set(info["warmup"]) == {(b, "plain") for b in engine.buckets}
+    assert info["latency"] == {32: (5, pytest.approx(info["latency"][32][1]),
+                                    pytest.approx(info["latency"][32][2]))}
+    assert info["recall"] == out["classic"]["recall"] and info["qps"] > 0
+    assert engine.index.n == idx.n + 8 - 1           # 8 inserted, 1 deleted
+    assert idx.n == N_SMALL                          # the live index untouched
+    assert all(v == 0 for v in launches.values()), launches  # CPU: plain
+
+
+def test_phase9_engine_refuses_a_burst_over_one_flush(persisted, tmp_path):
+    idx, _, queries, out, quant = persisted
+    path = str(tmp_path / "i.npz")
+    idx.save(path)
+    with pytest.raises(AssertionError, match="a burst of 40: 2 flushes"):
+        cs.engine_phase(path, queries, cs.served_ids(out, quant), out["gt"],
+                        "cpu", batch=BATCH, bursts=(40,), sessions=1,
+                        steps=1, n_insert=1)
+
+
+def test_phase9_wal(rehearsal, tmp_path):
+    base = np.random.default_rng(3).normal(size=(400, cs.DIM)).astype(
+        np.float32)
+    launches, count = _counted()
+    secs = cs.wal_phase(base, "cpu", str(tmp_path), count, n=400, n_snap=300,
+                        n_remove=4, n_refine=8)
+    assert set(secs) == {"build", "save", "add", "remove", "refine",
+                         "recover", "checkpointed build", "load checkpoint",
+                         "resume"}
+    assert all(v == 0 for v in launches.values()), launches  # CPU: plain
+    ck = sorted(f for f in os.listdir(tmp_path) if f.startswith("ck_"))
+    # 379 rows in waves of 64: 6 waves, a checkpoint at wave 4
+    assert ck == ["ck_4.npz"]
+
+
+def test_compare_indexes_catches_a_difference(persisted, tmp_path):
+    from repro_torch.core.build import DEGIndex
+
+    idx = persisted[0]
+    path = str(tmp_path / "i.npz")
+    idx.save(path)
+    twin = DEGIndex.load(path, device="cpu")
+    cs.compare_indexes("twin", idx, twin)
+    twin._rng.integers(0, 10)
+    with pytest.raises(AssertionError, match="RNG stream"):
+        cs.compare_indexes("twin", idx, twin)
+    twin = DEGIndex.load(path, device="cpu")
+    twin.builder.weights[5, 0] += 1.0
+    with pytest.raises(AssertionError, match="rows differ"):
+        cs.compare_indexes("twin", idx, twin)
+
+
+def test_main_without_a_card_exits_nonzero(capsys):
+    assert cs.main([]) == 1
+    captured = capsys.readouterr()
+    assert captured.out == "" and "no CUDA device" in captured.err
+
+
+def test_main_keeps_its_kernels_and_ok_lines():
+    """main() still runs phase 9 between the serving comparisons and the
+    baselines, prints the kernels' line with every kernel it listed
+    before, and ends with the ok line."""
+    import inspect
+
+    assert set(cs.KERNELS) == {
+        "gather_dist", "beam_merge", "fused_hop", "mrng_occlusion",
+        "gather_dist_q", "pq_adc", "l2_topk", "bag_lookup", "beam_search",
+        "extend_select"}
+    src = inspect.getsource(cs.main)
+    order = [src.index(s) for s in (
+        "compare_quant_phase(", "persist_serve_phase(", "baselines_phase(",
+        "refine_phase(", 'json.dumps({"kernels": kernel_rows(',
+        'json.dumps({"ok": True')]
+    assert order == sorted(order)
+    tail = src[src.index('json.dumps({"ok": True'):]
+    assert tail.rstrip().endswith("return 0")
+    assert '"platform": "gpu"' in tail and "get_device_name(0)" in tail

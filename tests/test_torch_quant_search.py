@@ -29,7 +29,6 @@ import torch
 from repro.core.build import DEGParams as JDEGParams
 from repro.core.build import build_deg as j_build_deg
 from repro.core.search import exact_rerank as j_exact_rerank
-from repro.persist import read_snapshot
 from repro_torch.core.build import DEGParams, build_deg
 from repro_torch.core.distances import exact_knn
 from repro_torch.core.metrics import recall_at_k
@@ -37,6 +36,7 @@ from repro_torch.core.search import exact_rerank, range_search, search_graph
 from repro_torch.interop import (index_from_numpy, result_to_numpy,
                                   store_from_numpy, store_to_numpy)
 from repro_torch.kernels.fused_hop import ops as fh_ops
+from repro_torch.persist import read_snapshot
 from repro_torch.quant.store import make_store
 
 INVALID = -1
