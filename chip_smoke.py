@@ -5,7 +5,10 @@ paper's audio size, take the exact ground truth from the brute-force scan,
 serve queries and exploration sessions from the index, serve from its
 compressed stores (fp16, sq8, pq), save the index and serve the restored
 copy through the query engine, recover a journaled index and resume a
-checkpointed build, build and serve the paper's baseline graphs, refine
+checkpointed build, mutate the restored index while the sync and async
+engines serve published epochs of it, scrub and repair injected damage,
+run the serve and build_index launchers, build and serve the paper's
+baseline graphs, refine
 the index, delete vertices from it, and serve again; then serve the
 recsys models DIN and DCN-v2 at their published widths, their embedding
 bags through the bag_lookup kernel.
@@ -138,14 +141,51 @@ Phases (any failure raises and exits non-zero):
      stream, WAL cursor); a build checkpointed every 4 waves, resumed
      from its last checkpoint, equal to the uninterrupted build; each
      step's seconds;
-  10. the kernels' JSON line, then the final JSON line.
+  10. (inside phase 9's temporary directory, on its snapshot) live
+     mutation under serving:
+     10a. the restored index: enable_publishing(), one publish() timed and
+     the device bytes an epoch holds; the 10,000 queries in batches of 256
+     from the epoch, ids, dists, hops and evals torch.equal to the live
+     index and ids to phase 4's; the epoch held across an insert wave of
+     LIVE_INSERT held-out rows, a remove of LIVE_REMOVE and a refine of
+     LIVE_REFINE on the live index, its tensors and searches torch.equal
+     to before; after its release one live epoch;
+     10b. corrupt_adjacency(idx, LIVE_CORRUPT, seed=0) and one timed
+     IntegrityScrubber.run_pass(): every corrupted row quarantined; at the
+     scrubber's scrub.repair hook (quarantine published, repair not begun)
+     a sync-engine flush of the 10,000 queries returns no quarantined id,
+     one beam_search launch a flush; after the repair Table 1, an empty
+     quarantine and classic recall@10 >= 0.90 against the exact neighbors
+     of the rows now held;
+     10c. a fresh restore: AsyncQueryEngine(max_batch=256, preset
+     "classic"), warm-up, the 10,000 queries as single submits with no
+     deadline (one beam_search launch a flush), ids equal to phase 4's on
+     every slot, request p50/p99, QPS, flushes; each rung of the
+     degradation ladder forced on 256 queries, ids equal to a sync flush
+     under the rung's config and hop budget (the sq8 rung over the sq8
+     store); LIVE_PARTIAL expired submits complete partial with hops <=
+     partial_hops;
+     10d. the "classic" and "sq8-serving" async engines serve rounds of
+     256 queries while a writer thread runs LIVE_TICKS ticks (insert
+     LIVE_INSERT held-out rows, remove LIVE_REMOVE, refine LIVE_REFINE,
+     publish) and the scrubber audits; every result replayed bit for bit
+     against its stamped epoch (zero torn reads), Table 1 at the end,
+     epochs published and retired and the p99 retire lag;
+     10e. python -m repro_torch.launch.serve --index <the snapshot>
+     --engine async --warmup --refine-while-serving 4 --scrub-every 0.5
+     --inject-corruption 16 as a subprocess, its resilience:, scrub: and
+     invariants: lines required; launch.build_index --out at
+     N_BUILD_INDEX rows, loaded back;
+  11. the kernels' JSON line, then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
 exploration sessions, the refinement, the deletion, phase 9's pieces
 (the restored index's serving, the engine's warm-up, flushes, bursts,
 sessions, insert and delete, the journaled and checkpointed builds and
-their recovery) and the recsys serving only;
+their recovery), phase 10's (the epoch's serving and the mutations under
+it, the scrub pass, the async engines' flushes, the writer and the
+engines of 10d together, build_index) and the recsys serving only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.  Each counted piece that searches is held to one beam_search
 launch for each of its range_search calls where the search kernel takes
@@ -261,6 +301,13 @@ N_INSERT = 64                      # held-out points inserted through the engine
 WAL_SNAP = 3_000                   # rows journaled before the snapshot
 WAL_REMOVE, WAL_REFINE = 16, 32
 CKPT_EVERY = 4                     # waves between checkpoints
+# phase 10: live mutation under serving on the restored audio index
+LIVE_INSERT, LIVE_REMOVE, LIVE_REFINE = 64, 16, 32   # a writer tick
+LIVE_CORRUPT = 64                  # adjacency entries flipped for the scrubber
+LIVE_TICKS = 3                     # writer ticks while the engines serve
+LIVE_ROUNDS = 4                    # serving rounds at least, per engine
+LIVE_PARTIAL = 64                  # submits with an expired deadline
+N_BUILD_INDEX = 4_000              # launch.build_index --out
 # DEGIndex.memory_stats() at the audio size (n=53,387, m=192), by
 # quant/codec.py::store_bytes; pq: 24 code bytes a row plus the codebooks
 AUDIO_STORE_BYTES = {"float32": 41_001_216, "fp16": 20_500_608,
@@ -1100,11 +1147,17 @@ def last_block(n: int, degree: int) -> int:
     return (n - degree - 1) % WAVE % EXTEND_BLOCK or EXTEND_BLOCK
 
 
-def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
+def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES,
+           n_rows=N_AUDIO) -> dict:
+    """Every kernel's checks over ``n_rows`` phase-2 rows (the ground
+    truth's scan always over N_AUDIO of them).  The card runs them at
+    N_AUDIO; a rehearsal on the CPU may take fewer rows, every check and
+    shape but N kept."""
     from repro_torch.configs.deg import QUANT_PRESETS
     from repro_torch.core.beam import default_beam_width, default_visited_size
 
-    inp = phase2_inputs(device)
+    inp = phase2_inputs(device, N=n_rows)
+    gt_inp = inp if n_rows == N_AUDIO else phase2_inputs(device)
     B, d, L = PHASE2["B"], PHASE2["d"], PHASE2["L"]
     # the other shapes the main path gives the kernels: an insert wave's
     # search (k = k_ext), the last hop of an exploration session, whose
@@ -1161,7 +1214,7 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES) -> dict:
                # matrix, so fewer timing runs) and of phase 4c's baselines,
                # the serving batch, a single query, a ragged shape and the
                # padding case
-               check_l2_topk(inp, device, n_queries, K, reps=5),
+               check_l2_topk(gt_inp, device, n_queries, K, reps=5),
                check_l2_topk(inp, device, N_BASELINE_QUERIES, K,
                              N=N_HOST, m=PHASE2["m"]),
                check_l2_topk(inp, device, B, K),
@@ -2433,6 +2486,561 @@ def compare_indexes(what: str, want, got) -> None:
                              "differs")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: live mutation under serving, the async engine, the launchers
+# ---------------------------------------------------------------------------
+def _no_count(fn, *a, **kw):
+    return fn(*a, **kw)
+
+
+def _same_fields(what: str, got: dict, want: dict) -> None:
+    import torch
+
+    for f, t in want.items():
+        if not torch.equal(got[f], t):
+            raise AssertionError(f"{what}: {f} differ")
+
+
+def epoch_phase(idx, queries, results: dict, held_out, device, count=None,
+                *, batch=BATCH, n_insert=LIVE_INSERT, n_remove=LIVE_REMOVE,
+                n_refine=LIVE_REFINE) -> dict:
+    """Phase 10a on the restored index ``idx``: ``enable_publishing()``,
+    then one ``publish()`` timed and the device bytes an epoch holds; the
+    queries served from the epoch in batches (one ``beam_search`` launch a
+    call) with ids, dists, hops and evals ``torch.equal`` to the live
+    index's and ids equal to phase 4's; the epoch held across an insert
+    wave of ``n_insert`` held-out rows, a remove of ``n_remove`` and a
+    refine of ``n_refine`` on the live index, its tensors and its searches
+    ``torch.equal`` to before; after its release one live epoch."""
+    from repro_torch.core.beam import search_kernel_eligible
+
+    count = count or _no_count
+    kernel = search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                    device)
+    mgr = count(idx.enable_publishing)
+    t0 = time.perf_counter()
+    count(idx.publish)
+    sync()
+    publish_s = time.perf_counter() - t0
+    view = idx.acquire_view()
+    nbytes = view.nbytes()
+    log(f"phase10 publish: epoch {view.epoch} in {publish_s * 1e3:.3f} ms, "
+        f"{nbytes:,} device bytes held (graph and vectors of "
+        f"{idx.capacity:,} rows)")
+    got, n_calls = count_searches(count, "phase10 epoch serve",
+                                  serve_tensors, view, queries, "classic",
+                                  batch=batch, kernel=kernel)
+    if n_calls != -(-len(queries) // batch):
+        raise AssertionError(f"{n_calls} range_search calls for "
+                             f"{len(queries)} queries from the epoch")
+    _same_fields("the epoch's search against the live index's", got,
+                 serve_tensors(idx, queries, "classic", batch=batch))
+    if not np.array_equal(got["ids"].cpu().numpy(), results["classic"]):
+        raise AssertionError("the epoch's ids differ from phase 4's")
+    held = {"adjacency": view.graph.adjacency.clone(),
+            "weights": view.graph.weights.clone(),
+            "vectors": view.vectors.clone()}
+    n0 = idx.n
+    secs = {}
+    victims = np.random.default_rng(0).choice(n0, size=n_remove,
+                                              replace=False)
+    for what, fn, args, kw in (
+            ("insert", idx.add, (held_out[:n_insert],), {"wave_size": WAVE}),
+            ("remove", idx.remove, (victims,), {}),
+            ("refine", idx.refine, (n_refine,), {"seed": 0})):
+        t0 = time.perf_counter()
+        count_searches(count, f"phase10 live {what}", fn, *args,
+                       kernel=kernel, **kw)
+        sync()
+        secs[what] = time.perf_counter() - t0
+    _same_fields("the held epoch's tensors after the mutations",
+                 {"adjacency": view.graph.adjacency,
+                  "weights": view.graph.weights, "vectors": view.vectors},
+                 held)
+    _same_fields("the held epoch's searches after the mutations",
+                 serve_tensors(view, queries, "classic", batch=batch), got)
+    count(idx.publish)
+    live_held = mgr.live_epochs()
+    idx.release_view(view)
+    live_after = mgr.live_epochs()
+    if len(live_held) != 2 or live_after != [mgr.current.epoch]:
+        raise AssertionError(f"live epochs {live_held} while held, "
+                             f"{live_after} after the release")
+    log(f"phase10 epochs: {len(queries)} queries from epoch {view.epoch} "
+        "torch.equal to the live index (ids, dists, hops, evals), ids equal "
+        f"to phase 4's; held across insert {n_insert} / remove {n_remove} / "
+        f"refine {n_refine} (n {n0} -> {idx.n}; seconds " + ", ".join(
+            f"{k} {v:.3f}" for k, v in secs.items()) + "), its tensors and "
+        f"searches torch.equal to before; live epochs {live_held} while "
+        f"held, {live_after} after the release")
+    return dict(publish_ms=publish_s * 1e3, epoch_bytes=nbytes, **secs)
+
+
+def scrub_phase(idx, queries, device, count=None, *, batch=BATCH,
+                n_corrupt=LIVE_CORRUPT, refine_repaired=True) -> dict:
+    """Phase 10b: ``corrupt_adjacency(idx, n_corrupt, seed=0)``, then one
+    timed ``IntegrityScrubber.run_pass()``; every corrupted row must enter
+    the quarantine.  Between quarantine and re-admission (the scrubber's
+    ``scrub.repair`` hook) a sync-engine flush of every query returns no
+    quarantined id, one ``beam_search`` launch a flush.  After the repair:
+    Table 1, an empty quarantine, and "classic" recall@10 against the
+    exact neighbors of the rows the index now holds."""
+    from repro_torch.core.beam import search_kernel_eligible
+    from repro_torch.core.invariants import check_table1
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.kernels.beam_search import ops as bs
+    from repro_torch.resilience import FaultPlan
+    from repro_torch.serving import QueryEngine
+    from repro_torch.serving.scrub import IntegrityScrubber, corrupt_adjacency
+
+    count = count or _no_count
+    kernel = search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                    device)
+    rows = count(corrupt_adjacency, idx, n_corrupt, seed=0)
+    engine = QueryEngine(idx, k=K, eps=EPS, max_batch=batch,
+                         preset="classic")
+    seen = {}
+
+    def between(**ctx):
+        # the quarantine is published; the repair has not begun
+        ep = idx._epochs.current
+        q = set(ep.quarantine)
+        f0, l0 = engine.stats.flushes, bs.launches
+        ids, _ = engine.search(queries)
+        flushes = engine.stats.flushes - f0
+        seen.update(quarantine=q, flushes=flushes,
+                    launches=bs.launches - l0,
+                    leaked=int(np.isin(ids, list(q)).sum()))
+
+    scrub = IntegrityScrubber(idx, refine_repaired=refine_repaired)
+    t0 = time.perf_counter()
+    with FaultPlan().call("scrub.repair", between, at=1):
+        summary, _ = count_searches(count, "phase10 scrub pass",
+                                    scrub.run_pass, kernel=kernel)
+    sync()
+    pass_s = time.perf_counter() - t0
+    missed = sorted(set(rows) - seen.get("quarantine", set()))
+    want_launches = seen.get("flushes", -1) if kernel else 0
+    if (missed or seen.get("leaked", 1) or seen["flushes"]
+            != -(-len(queries) // batch)
+            or seen["launches"] != want_launches):
+        raise AssertionError(f"scrub: corrupted rows {missed} not "
+                             f"quarantined, or the flush between: {seen}")
+    inv = check_table1(idx.builder)
+    if not all(inv.values()) or idx.quarantine or summary["unrepaired"]:
+        raise AssertionError(f"after the scrub pass: {inv}, quarantine "
+                             f"{sorted(idx.quarantine)}, {summary}")
+    gt = ground_truth(idx.vectors[: idx.n], queries, device,
+                      tag="phase10 scrubbed")
+    got, _ = count_searches(count, "phase10 serve after the repair",
+                            serve_tensors, idx, queries, "classic",
+                            batch=batch, kernel=kernel)
+    rec = recall_at_k(got["ids"].cpu().numpy(), gt)
+    log(f"phase10 scrub: {n_corrupt} flips over {len(rows)} rows; run_pass "
+        f"{pass_s:.3f} s: {summary}; every corrupted row quarantined "
+        f"({len(seen['quarantine'])} in all); the flush between: "
+        f"{len(queries)} queries in {seen['flushes']} flushes, "
+        f"{seen['launches']} beam_search launches, no quarantined id; "
+        f"after the repair Table 1 holds, quarantine empty, recall@{K} "
+        f"{rec:.4f} over the n={idx.n} rows (phase 4: the built graph's)")
+    if rec < RECALL_FLOOR:
+        raise AssertionError(f"recall@{K} {rec:.4f} after the repair")
+    return dict(pass_s=pass_s, summary=summary, recall=rec,
+                quarantined=len(seen["quarantine"]))
+
+
+def _direct_flush(view, cfg, queries, hop_budget):
+    """One sync flush of ``queries`` under ``cfg``: the bucket dispatch a
+    ``QueryEngine`` flush runs, with a per-lane hop budget and the view's
+    quarantine excluded, as both engines exclude it."""
+    from repro_torch.serving import buckets as B
+    from repro_torch.serving.engine import to_host
+
+    quarantine = tuple(getattr(view, "quarantine", ()) or ())
+    items = [B.BatchItem(query=q, exclude=quarantine) for q in queries]
+    bucket = B.pow2_bucket(len(items))
+    qs, seeds, excl = B.pad_batch(items, bucket, view.medoid())
+    budget = (None if hop_budget is None
+              else np.full(bucket, hop_budget, np.int32))
+    return to_host(B.dispatch(view, cfg, qs, seeds, excl, budget))
+
+
+def _sync_engine_ids(idx, cfg, queries):
+    """The ids of ``queries`` from a sync ``QueryEngine`` built with
+    ``cfg``'s knobs (the sync engine has no hop budget)."""
+    from repro_torch.serving import QueryEngine
+
+    eng = QueryEngine(idx, k=cfg.k, eps=cfg.eps, max_batch=len(queries),
+                      beam_width=cfg.beam_width, codec=cfg.codec,
+                      rerank_k=cfg.rerank_k, expand_width=cfg.expand_width,
+                      visited_size=cfg.visited_size,
+                      hop_backend=cfg.hop_backend)
+    if eng.cfg != cfg:
+        raise AssertionError(f"the sync engine's config {eng.cfg} is not "
+                             f"{cfg}")
+    return eng.search(queries)[0]
+
+
+def _async_all(engine, queries, **kw):
+    futs = [engine.submit(q, **kw) for q in queries]
+    outs = [f.result(600.0) for f in futs]
+    return futs, outs
+
+
+def async_phase(path, queries, results: dict, device, count=None, *,
+                batch=BATCH, n_partial=LIVE_PARTIAL, tmp=None) -> dict:
+    """Phase 10c on a fresh restore of the snapshot:
+    ``AsyncQueryEngine(max_batch=batch, preset="classic")``: ``warmup()``,
+    then every query as its own submit with no deadline (one
+    ``beam_search`` launch a flush), ids equal to phase 4's on every slot;
+    request p50/p99 and QPS.  Each rung of the degradation ladder forced
+    once on ``batch`` queries, its ids equal on every lane to a flush of
+    the buckets' dispatch under the rung's config and hop budget, and to
+    a sync ``QueryEngine`` built with the rung's config (the sq8 rung's
+    an sq8 engine) on every lane that the hop budget did not stop.
+    ``n_partial`` submits with an expired
+    deadline complete ``partial`` with hops <= ``partial_hops`` (read
+    from the query log)."""
+    from repro_torch.core.beam import search_kernel_eligible
+    from repro_torch.core.build import DEGIndex
+    from repro_torch.obs import QueryLogWriter, read_query_log
+    from repro_torch.serving import AsyncQueryEngine
+
+    count = count or _no_count
+    idx = count(DEGIndex.load, path, device=device)
+    kernel = search_kernel_eligible(idx._dev_vectors, "l2", "composed",
+                                    device)
+    kw = dict(k=K, eps=EPS, max_batch=batch, preset="classic",
+              deadline_ms=None)
+    eng = AsyncQueryEngine(idx, **kw)
+    try:
+        warm = count(eng.warmup)
+        t0 = time.perf_counter()
+        (futs, outs), n_calls = count_searches(
+            count, "phase10 async serve", _async_all, eng, queries,
+            kernel=kernel)
+        wall = time.perf_counter() - t0
+        st = eng.stats
+    finally:
+        eng.close()
+    ids = np.stack([o[0] for o in outs])
+    if n_calls != st.flushes or not np.array_equal(ids, results["classic"]):
+        raise AssertionError(f"async: {n_calls} range_search calls for "
+                             f"{st.flushes} flushes, or ids differ from "
+                             "phase 4's")
+    lat = np.array([f.latency_s for f in futs]) * 1e3
+    out = dict(p50_ms=float(np.percentile(lat, 50)),
+               p99_ms=float(np.percentile(lat, 99)),
+               qps=len(queries) / wall, flushes=st.flushes,
+               buckets=dict(st.bucket_hist), warmup_s=sum(warm.values()))
+    log(f"phase10 async engine: {len(queries)} single submits in "
+        f"{st.flushes} flushes (buckets {dict(sorted(st.bucket_hist.items()))})"
+        f", {n_calls} beam_search launches, ids equal to phase 4's on every "
+        f"slot; request p50 {out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} "
+        f"ms, {out['qps']:.1f} QPS over {wall:.3f} s wall; warmup "
+        f"{out['warmup_s']:.3f} s over {len(warm)} flush shapes")
+    # the ladder, each rung forced on every flush of one batch
+    eng = AsyncQueryEngine(idx, max_queue=4 * batch, degrade=True, **kw)
+    rungs, capped = [], {}
+    try:
+        count(eng.warmup)
+        for level, rung in enumerate(eng._ladder):
+            eng._ladder_ctl.observe = lambda backlog, lv=level: lv
+            (futs, outs), _ = count_searches(
+                count, f"phase10 async rung {rung.name}", _async_all, eng,
+                queries[:batch], kernel=kernel)
+            got = np.stack([o[0] for o in outs])
+            want, _, hops = _direct_flush(idx, rung.cfg, queries[:batch],
+                                          rung.hop_budget)[:3]
+            want, hops = want[:batch], hops[:batch]
+            free = (np.ones(batch, bool) if rung.hop_budget is None
+                    else hops < rung.hop_budget)
+            sync_ids = _sync_engine_ids(idx, rung.cfg, queries[:batch])
+            if (not np.array_equal(got, want)
+                    or not np.array_equal(got[free], sync_ids[free])
+                    or {f.degrade_level for f in futs} != {level}):
+                raise AssertionError(f"rung {rung.name}: ids differ from a "
+                                     "flush or a sync engine under its "
+                                     "config")
+            rungs.append(rung.name)
+            capped[rung.name] = int(batch - free.sum())
+    finally:
+        eng.close()
+    log(f"phase10 degrade ladder: rungs {rungs} each forced on {batch} "
+        "queries, ids equal to a flush under the rung's config and hop "
+        "budget on every lane, and to a sync QueryEngine of the rung's "
+        "config (the sq8 rung's an sq8 engine) on the lanes the budget did "
+        f"not stop (lanes stopped: {capped})")
+    # expired deadlines: served under the partial hop budget
+    path_log = os.path.join(tmp, "partials.jsonl")
+    qlog = QueryLogWriter(path_log)
+    eng = AsyncQueryEngine(idx, k=K, eps=EPS, max_batch=batch,
+                           preset="classic", deadline_ms=0.0, partial_hops=4,
+                           trace_sample=1.0, query_log=qlog)
+    try:
+        futs, _ = count(_async_all, eng, queries[:n_partial])
+    finally:
+        eng.close()
+        qlog.close()
+    recs = read_query_log(path_log)
+    hops = [r["hops"] for r in recs]
+    if (not all(f.partial for f in futs) or len(recs) != n_partial
+            or not all(r["partial"] for r in recs) or max(hops) > 4):
+        raise AssertionError(f"expired deadlines: partial "
+                             f"{sum(f.partial for f in futs)}, hops {hops}")
+    log(f"phase10 expired deadlines: {n_partial} submits all partial, hops "
+        f"<= partial_hops 4 (max {max(hops)})")
+    out["rungs"] = rungs
+    return out
+
+
+def live_serve_phase(idx, queries, held_out, device, count=None, *,
+                     batch=BATCH, ticks=LIVE_TICKS, n_insert=LIVE_INSERT,
+                     n_remove=LIVE_REMOVE, n_refine=LIVE_REFINE,
+                     min_rounds=LIVE_ROUNDS) -> dict:
+    """Phase 10d on the publishing index of 10a and 10b: a "classic" and
+    an "sq8-serving" async engine serve rounds of ``batch`` queries, in
+    turn, while
+    a writer thread runs ``ticks`` ticks (insert ``n_insert`` held-out
+    rows, remove ``n_remove``, refine ``n_refine``, publish) and the
+    scrubber audits.  Every served result replays bit-identically
+    (``torch.equal`` of ids and dists) against the epoch stamped on it;
+    Table 1 holds at the end; the scrubber ended at least one pass, none
+    of them with an error or a crash; epochs published and retired and
+    the p99 supersede-to-retire lag are logged."""
+    import threading
+
+    import torch
+    from repro_torch.configs.deg import QUANT_PRESETS
+    from repro_torch.core.invariants import check_table1
+    from repro_torch.obs import EPOCH_RETIRED_LAG_MS, MetricsRegistry
+    from repro_torch.serving import AsyncQueryEngine
+    from repro_torch.serving.scrub import IntegrityScrubber
+
+    count = count or _no_count
+    if idx.metrics is None:
+        idx.metrics = MetricsRegistry()
+    mgr = idx._epochs
+    kept = {e: mgr.live[e] for e in mgr.live_epochs()}
+    publish0, retired0 = mgr.current.epoch, mgr.retired_total
+    orig_publish = mgr.publish
+    lock = threading.Lock()
+
+    def keeping_publish(ep):
+        with lock:
+            kept[ep.epoch] = ep
+        orig_publish(ep)
+
+    sq8 = QUANT_PRESETS["sq8-serving"]
+    engines = {
+        "classic": AsyncQueryEngine(idx, k=K, eps=EPS, max_batch=batch,
+                                    preset="classic", deadline_ms=None),
+        "sq8-serving": AsyncQueryEngine(
+            idx, k=K, eps=EPS if sq8.eps is None else sq8.eps,
+            max_batch=batch, preset="classic", codec=sq8.codec,
+            rerank_k=sq8.rerank_k, deadline_ms=None)}
+    for e in engines.values():
+        e.warmup()
+    errors, done = [], threading.Event()
+    rng = np.random.default_rng(3)
+
+    def writer():
+        try:
+            for i in range(ticks):
+                rows = held_out[i * n_insert:(i + 1) * n_insert]
+                idx.add(rows, wave_size=WAVE)
+                idx.remove(rng.choice(idx.n, size=n_remove, replace=False))
+                idx.refine(n_refine, seed=100 + i)
+                idx.publish()
+        except Exception as e:          # surfaced below
+            errors.append(e)
+        finally:
+            done.set()
+
+    def serve():
+        # the writer and the scrubber start inside the counted piece, so
+        # each of their searches is counted with its launch
+        scrub.start()
+        wt.start()
+        served = []
+        rounds = 0
+        names = list(engines)
+        while (not done.is_set() or rounds < min_rounds
+               or not scrub.pass_ended.is_set()):
+            lo = (rounds * batch) % max(1, len(queries) - batch)
+            qs = queries[lo:lo + batch]
+            name = names[rounds % len(names)]      # the engines in turn
+            futs = [engines[name].submit(q) for q in qs]
+            for q, f in zip(qs, futs):
+                ids, dists = f.result(600.0)
+                served.append((name, q, ids, dists, f.epoch))
+            rounds += 1
+            # the writer's host work needs the interpreter too: without a
+            # pause between rounds the serving threads starve it
+            time.sleep(0.005)
+        wt.join()
+        scrub.stop()
+        return served, rounds
+
+    scrub = IntegrityScrubber(idx, interval_s=0.5)
+    wt = threading.Thread(target=writer, name="phase10-writer")
+    mgr.publish = keeping_publish
+    t0 = time.perf_counter()
+    try:
+        (served, rounds), _ = count_searches(
+            count, "phase10 live mutation under serving", serve,
+            kernel=torch.device(device).type == "cuda")
+    finally:
+        if wt.is_alive():
+            wt.join()
+        scrub.stop()
+        for e in engines.values():
+            e.close()
+        mgr.publish = orig_publish
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    torn = 0
+    by = {}
+    for name, q, ids, dists, ep in served:
+        by.setdefault((name, ep), []).append((q, ids, dists))
+    for (name, e), group in sorted(by.items()):
+        cfg = engines[name].cfg
+        for lo in range(0, len(group), batch):
+            chunk = group[lo:lo + batch]
+            r_ids, r_d = _direct_flush(kept[e], cfg, [g[0] for g in chunk],
+                                       None)[:2]
+            got_ids = torch.from_numpy(np.stack([g[1] for g in chunk]))
+            got_d = torch.from_numpy(np.stack([g[2] for g in chunk]))
+            n = len(chunk)
+            torn += int((~(torch.from_numpy(r_ids[:n]) == got_ids).all(1)
+                         | ~(torch.from_numpy(r_d[:n]).view(torch.int32)
+                             == got_d.view(torch.int32)).all(1)).sum())
+    inv = check_table1(idx.builder)
+    lag = idx.metrics.histogram(EPOCH_RETIRED_LAG_MS)
+    published = mgr.current.epoch - publish0
+    retired = mgr.retired_total - retired0
+    log(f"phase10 live mutation under serving: {ticks} writer ticks (insert "
+        f"{n_insert}, remove {n_remove}, refine {n_refine}, publish) and "
+        f"{scrub.stats.passes} scrub passes ({scrub.stats.errors} errors, "
+        f"{scrub.stats.crashes} crashes) in {wall:.3f} s while "
+        f"{rounds} rounds of {batch} queries went to the classic and "
+        f"sq8-serving async engines in turn: {len(served)} results over "
+        f"epochs {sorted({k[1] for k in by})}, {torn} torn reads (each result "
+        "replayed against its epoch, ids and dists bit for bit); epochs "
+        f"published {published}, retired {retired}, retire lag p99 "
+        f"{lag.percentile(99.0):.3f} ms over {lag.count}; n {idx.n}; "
+        f"Table 1 {inv}")
+    ss = scrub.stats
+    if (torn or not all(inv.values()) or len({k[1] for k in by}) < 2
+            or ss.passes < 1 or ss.errors or ss.crashes):
+        raise AssertionError(f"live mutation: {torn} torn reads, Table 1 "
+                             f"{inv}, epochs {sorted(by)}, scrubber {ss}")
+    return dict(results=len(served), torn=torn, published=published,
+                retired=retired, lag_p99_ms=lag.percentile(99.0),
+                wall_s=wall, scrub_passes=scrub.stats.passes)
+
+
+def launcher_phase(path, device, tmp, count=None, *, queries=None,
+                   n_build=N_BUILD_INDEX) -> dict:
+    """Phase 10e: ``python -m repro_torch.launch.serve --index <path>
+    --engine async --warmup --refine-while-serving 4 --scrub-every 0.5
+    --inject-corruption 16`` as a subprocess (its ``resilience:``,
+    ``refine:``, ``scrub:`` and ``invariants:`` lines required: no crash,
+    at least one refine tick and no refine error, no scrub error or
+    crash, nothing left unrepaired), then ``launch.build_index --out`` at
+    ``n_build`` rows, loaded back."""
+    from repro_torch.core.build import DEGIndex
+    from repro_torch.launch import build_index
+
+    count = count or _no_count
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--index", path,
+           "--engine", "async", "--warmup", "--refine-while-serving", "4",
+           "--scrub-every", "0.5", "--inject-corruption", "16",
+           "--device", device]
+    if queries:
+        cmd += ["--queries", str(queries)]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    want = {}
+    for key in ("resilience:", "refine: ticks=", "scrub:", "invariants:",
+                "served "):
+        hit = [ln for ln in lines if ln.startswith(key)]
+        want[key] = hit[-1] if hit else None
+    for ln in want.values():
+        if ln:
+            log(f"  serve: {ln}")
+    if proc.returncode != 0 or None in want.values():
+        raise AssertionError(f"launch.serve exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    res, refine, scrub = (dict(kv.split("=") for kv in want[key].split()[1:])
+                          for key in ("resilience:", "refine: ticks=",
+                                      "scrub:"))
+    if (res["crashed"] != "0" or res["status"] != "ok"
+            or int(refine["ticks"]) < 1 or refine["errors"] != "0"
+            or scrub["errors"] != "0" or scrub["crashes"] != "0"
+            or scrub["unrepaired"] != "0" or int(scrub["quarantined"]) < 1
+            or want["invariants:"] != "invariants: ok=True"):
+        raise AssertionError(f"launch.serve: {want}")
+    import torch
+
+    out_path = os.path.join(tmp, "built.npz")
+    kernel = torch.device(device).type == "cuda"    # l2, the exact store
+    t1 = time.perf_counter()
+    count_searches(count, "phase10 build_index", build_index.main,
+                   ["--n", str(n_build), "--out", out_path,
+                    "--device", device], kernel=kernel)
+    build_s = time.perf_counter() - t1
+    back = DEGIndex.load(out_path, device=device)
+    if back.n != n_build:
+        raise AssertionError(f"build_index wrote n={back.n}")
+    log(f"phase10 launch.serve subprocess: exit 0 in {secs:.1f} s; "
+        f"build_index --out at n={n_build}: {build_s:.1f} s, loaded back "
+        f"n={back.n}")
+    return dict(serve_s=secs, build_s=build_s)
+
+
+def live_phase(path, queries, results: dict, device, count=None, *, tmp,
+               batch=BATCH, ticks=LIVE_TICKS, n_insert=LIVE_INSERT,
+               n_remove=LIVE_REMOVE, n_refine=LIVE_REFINE,
+               n_corrupt=LIVE_CORRUPT, n_partial=LIVE_PARTIAL,
+               launcher_queries=None, n_build=N_BUILD_INDEX) -> dict:
+    """Phase 10: 10a-10e on the index phase 9 saved at ``path``.  The rows
+    inserted are midpoints of seeded pairs of its rows, each inserted
+    once: rows of the data's spread that no query sits on, so the exact
+    scan after the inserts meets no near-zero distance (where the scan's
+    expanded form and ``exact_knn_batched`` part by more than 1e-5)."""
+    from repro_torch.core.build import DEGIndex
+
+    count = count or _no_count
+    t0 = time.perf_counter()
+    tick = dict(n_insert=n_insert, n_remove=n_remove, n_refine=n_refine)
+    idx = count(DEGIndex.load, path, device=device)
+    pairs = np.random.default_rng(10).integers(
+        0, idx.n, size=(2, n_insert * (ticks + 1)))
+    held_out = (0.5 * (idx.vectors[pairs[0]] + idx.vectors[pairs[1]])
+                ).astype(np.float32)
+    out = {"epochs": epoch_phase(idx, queries, results, held_out[:n_insert],
+                                 device, count, batch=batch, **tick)}
+    out["scrub"] = scrub_phase(idx, queries, device, count, batch=batch,
+                               n_corrupt=n_corrupt)
+    out["async"] = async_phase(path, queries, results, device, count,
+                               batch=batch, n_partial=n_partial, tmp=tmp)
+    out["live"] = live_serve_phase(idx, queries, held_out[n_insert:],
+                                   device, count, batch=batch, ticks=ticks,
+                                   **tick)
+    out["launch"] = launcher_phase(path, device, tmp, count,
+                                   queries=launcher_queries, n_build=n_build)
+    log(f"phase10 total {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def served_ids(served, quant_served) -> dict:
     """Phase 4's "classic" ids and phase 4b's ids of each store, by name."""
     return {"classic": served["classic"]["ids"],
@@ -2441,7 +3049,8 @@ def served_ids(served, quant_served) -> dict:
 
 def persist_serve_phase(idx, base, queries, served, quant_served, device,
                         count=None) -> dict:
-    """Phase 9: 9a, 9b and 9c in a temporary directory (removed after)."""
+    """Phase 9 (9a, 9b and 9c), then phase 10 on phase 9's snapshot, in a
+    temporary directory (removed after)."""
     import tempfile
 
     results = served_ids(served, quant_served)
@@ -2454,7 +3063,8 @@ def persist_serve_phase(idx, base, queries, served, quant_served, device,
         wal_dir = os.path.join(tmp, "wal")
         os.mkdir(wal_dir)
         wal = wal_phase(base, device, wal_dir, count)
-    return dict(snapshot=snap, engine=eng, wal=wal)
+        live = live_phase(path, queries, results, device, count, tmp=tmp)
+    return dict(snapshot=snap, engine=eng, wal=wal, live=live)
 
 
 # ---------------------------------------------------------------------------
@@ -2839,7 +3449,7 @@ def main(argv=None) -> int:
     # changes them
     persist_serve_phase(idx, base, queries, served, quant_served, device,
                         count)
-    stamp("phase 9")
+    stamp("phases 9 and 10")
     baselines_phase(base, queries, device, count)
     stamp("phase 4c")
     refine_phase(idx, queries, served["gt"], device, count)

@@ -84,8 +84,8 @@ SEARCH_PRESETS = {
 
 @dataclasses.dataclass(frozen=True)
 class ServingPreset:
-    """Continuous-batching scheduler configuration, as the JAX package
-    keeps it for its async engine (not ported yet, ROADMAP A9); the sync
+    """Continuous-batching scheduler configuration of the async engine
+    (``serving/async_engine.py``), as the JAX package keeps it; the sync
     ``serving.QueryEngine`` reads ``max_batch`` and ``bucket_floor``.
 
     ``max_batch`` bounds one flush; batches are padded to power-of-two

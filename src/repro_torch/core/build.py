@@ -28,10 +28,19 @@ write and read the JAX package's snapshot format;
 applied, so ``persist.recover(snapshot, wal)`` is bit-identical to the
 uninterrupted index; :meth:`DEGIndex.enable_checkpoints` snapshots the
 index at wave boundaries.
+
+Live mutation under serving (``core/epoch.py``): every mutator holds the
+index's re-entrant mutation lock, and once :meth:`DEGIndex.enable_publishing`
+ran, :meth:`DEGIndex.publish` captures an immutable epoch (a cloned graph
+and vector buffer, the quarantine set and a medoid outside it) that
+serving flushes search through :meth:`DEGIndex.acquire_view`, while writers
+go on mutating the live index.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -98,6 +107,59 @@ class DEGParams:
             raise ValueError("k_ext must be >= degree (paper Sec. 5.2)")
 
 
+def _locked(fn):
+    """Serialize a mutator on the index's mutation lock (re-entrant, so
+    mutators may call each other and ``publish`` from inside)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._mutex:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+def search_view(view, graph: DEGraph, vectors: torch.Tensor,
+                queries: np.ndarray, seed_ids: Optional[np.ndarray] = None,
+                exclude: Optional[np.ndarray] = None, *, k: int,
+                eps: float = 0.1, beam_width: Optional[int] = None,
+                quantized: Optional[str] = None,
+                rerank_k: Optional[int] = None,
+                expand_width: Optional[int] = None,
+                visited_size: Optional[int] = None,
+                hop_backend: Optional[str] = None,
+                hop_budget: Optional[np.ndarray] = None) -> SearchResult:
+    """The search of ``DEGIndex.search_batch`` over ``graph`` and
+    ``vectors``, with the defaults, the medoid and the compressed stores
+    of ``view``: the live index, or one of its published epochs."""
+    p = view.params
+    dev = view.device
+    E = p.expand_width if expand_width is None else expand_width
+    hb = p.hop_backend if hop_backend is None else hop_backend
+    vs = p.visited_size if visited_size is None else visited_size
+    q = torch.as_tensor(np.atleast_2d(np.ascontiguousarray(
+        queries, np.float32))).to(dev)
+    if seed_ids is None:
+        seeds = torch.full((q.shape[0], 1), view.medoid(),
+                           dtype=torch.int32, device=dev)
+    else:
+        seeds = torch.as_tensor(np.ascontiguousarray(seed_ids, np.int32)
+                                ).to(dev)
+        if seeds.ndim == 1:
+            seeds = seeds[:, None]
+
+    def dev_i32(x):
+        return None if x is None else torch.as_tensor(
+            np.ascontiguousarray(x, np.int32)).to(dev)
+
+    kw = dict(k=k, eps=eps, beam_width=beam_width, metric=p.metric,
+              exclude=dev_i32(exclude), expand_width=E, visited_size=vs,
+              hop_backend=hb, hop_budget=dev_i32(hop_budget))
+    if quantized in (None, "float32"):
+        return range_search(graph, vectors, q, seeds, **kw)
+    rk = int(rerank_k) if rerank_k else 4 * k
+    return range_search(graph, view.store_for(quantized), q, seeds,
+                        rerank_k=max(rk, k), exact_vectors=vectors, **kw)
+
+
 class DEGIndex:
     """A Dynamic Exploration Graph over a growing set of vectors."""
 
@@ -143,6 +205,17 @@ class DEGIndex:
         self._wal_seq = 0
         self._wal_replay = None
         self._wal_op_active = False
+        # live mutation under serving (core/epoch.py): mutators serialize
+        # on _mutex (re-entrant: publish() runs inside remove's lock);
+        # _epochs holds the refcounted published epochs once
+        # enable_publishing() ran; quarantine is the scrubber's set of
+        # damaged vertices, kept out of published seeds and results until
+        # they are repaired and audited clean
+        self._mutex = threading.RLock()
+        self._epochs = None
+        self.quarantine: set[int] = set()
+        self._publish_every_chunks = 0
+        self._refine_chunk_counter = 0
 
     # -- sizes -------------------------------------------------------------
     @property
@@ -169,7 +242,7 @@ class DEGIndex:
         self._medoid = None                    # vector set changed
         self._stores = {}
         self._dev_vectors[start : start + rows.shape[0]] = torch.as_tensor(
-            np.asarray(rows, np.float32)).to(self.device)
+            np.ascontiguousarray(rows, np.float32)).to(self.device)
 
     def medoid(self) -> int:
         """Cached approximate-median entry vertex (paper Sec. 5.4),
@@ -184,19 +257,118 @@ class DEGIndex:
         ``builder.freeze()`` for a snapshot that must survive mutations."""
         return self.builder.device_graph()
 
+    # -- epoch publication (core/epoch.py; live mutation under serving) ------
+    @property
+    def mutation_lock(self) -> threading.RLock:
+        """The re-entrant lock every mutator holds; external writers (the
+        scrubber, a refinement thread) take it around direct builder
+        surgery, so a ``publish()`` never captures a half-applied edit."""
+        return self._mutex
+
+    @property
+    def publishing(self) -> bool:
+        return self._epochs is not None
+
+    def enable_publishing(self, publish_now: bool = True,
+                          every_chunks: int = 0):
+        """Turn on epoch publication: serving flushes then search
+        refcounted immutable epochs (``acquire_view``) instead of the live
+        buffers, which writers update in place, so the index may be
+        mutated while an engine serves.  ``every_chunks > 0`` also
+        republishes every that many refine chunks.  Returns the manager."""
+        from .epoch import EpochManager
+
+        with self._mutex:
+            if self._epochs is None:
+                self._epochs = EpochManager(self)
+            self._publish_every_chunks = int(every_chunks)
+            if publish_now and self.builder is not None:
+                self.publish()
+        return self._epochs
+
+    def publish(self) -> int:
+        """Publish the current graph and vectors as a new epoch, at a
+        mutation-batch boundary.  Journals an ``epoch_publish`` record when
+        a WAL is attached and the publish is not inside a journaled op, so
+        ``recover()`` lands on the last published epoch.  Returns the new
+        epoch number.
+
+        The epoch holds clones: ``freeze()`` clones the graph, and the
+        vectors are cloned here, since ``_put_rows`` writes the live buffer
+        in place and an uncloned epoch would change under the next
+        insert."""
+        from repro_torch.obs.metrics import EPOCH_GAUGE, EPOCH_PUBLISH_TOTAL
+        from repro_torch.resilience import faults as _faults
+
+        from .epoch import PublishedEpoch
+
+        if self._epochs is None:
+            raise RuntimeError("enable_publishing() first")
+        if self.builder is None:
+            raise RuntimeError("nothing to publish: index is empty")
+        with self._mutex:
+            e = self._epochs.next_epoch
+            gen = self.builder.generation
+            quar = tuple(sorted(q for q in self.quarantine if q < self.n))
+            # publishes inside a journaled op (refine-chunk ticks) serve
+            # readers only: the enclosing record replays the mutations
+            if not self._wal_op_active and self._wal_replay is None:
+                self._wal_record("epoch_publish",
+                                 {"epoch": int(e), "n": int(self.n),
+                                  "gen": int(gen),
+                                  "quarantine": [int(q) for q in quar]}, {})
+            ep = PublishedEpoch(
+                epoch=e, graph=self.builder.freeze(),
+                vectors=self._dev_vectors.clone(), n=self.n,
+                medoid_id=self._publish_medoid(quar),
+                metric=self.params.metric, params=self.params,
+                quarantine=quar, builder_gen=gen)
+            _faults.fire("publish.swap", epoch=e, n=self.n)
+            self._epochs.publish(ep)
+        if self.metrics is not None:
+            self.metrics.gauge(EPOCH_GAUGE).set(e)
+            self.metrics.counter(EPOCH_PUBLISH_TOTAL).inc()
+        return e
+
+    def _publish_medoid(self, quarantine) -> int:
+        """The entry vertex an epoch seeds from: the cached medoid unless
+        it is quarantined, else the healthy vertex nearest the centroid."""
+        m = self.medoid()
+        bad = set(quarantine)
+        if m not in bad:
+            return m
+        vecs = self.vectors[: self.n]
+        dist = np.linalg.norm(vecs - vecs.mean(axis=0), axis=1)
+        dist[list(bad)] = np.inf
+        return int(np.argmin(dist))
+
     def acquire_view(self):
-        """The view a serving flush searches: the index itself (the
-        single-writer mode; epoch publishing is not ported).  Pass it back
-        to :meth:`release_view` once the results are on the host."""
+        """The view a serving flush searches.  With publishing on, the
+        current epoch, refcounted: pass it back to :meth:`release_view`
+        once the results are on the host.  Without, the index itself (the
+        single-writer mode), and release does nothing."""
+        if self._epochs is not None:
+            return self._epochs.acquire()
         return self
 
     def release_view(self, view) -> None:
-        """Nothing to release in the single-writer mode."""
+        if self._epochs is not None and view is not self and view is not None:
+            self._epochs.release(view)
+
+    def _publish_tick(self) -> None:
+        """Refine-chunk boundary hook (``core/optimize.py``): republish
+        every ``every_chunks`` chunks when ``enable_publishing`` set it."""
+        if self._epochs is None or self._publish_every_chunks <= 0:
+            return
+        self._refine_chunk_counter += 1
+        if self._refine_chunk_counter % self._publish_every_chunks == 0:
+            self.publish()
 
     # -- insertion -----------------------------------------------------------
+    @_locked
     def add(self, points: np.ndarray, wave_size: int = 1) -> None:
         """Insert points (Alg. 3). ``wave_size>1`` enables bulk build."""
-        points = np.asarray(points, dtype=np.float32)
+        points = np.ascontiguousarray(points, dtype=np.float32)
         if points.ndim == 1:
             points = points[None]
         if self.n + len(self._pending) + points.shape[0] > self.capacity:
@@ -433,6 +605,7 @@ class DEGIndex:
         return [(int(i), float(ds[i])) for i in order if int(i) not in exclude]
 
     # -- deletion (beyond the paper: completes "fully dynamic", Table 1) ------
+    @_locked
     def remove(self, ids, refine_after: int = 0) -> int:
         """Delete vertices preserving regularity and connectivity (no
         tombstones); see ``core/delete.py``.  Returns the number deleted.
@@ -453,6 +626,7 @@ class DEGIndex:
             self._wal_op_active = False
 
     # -- continuous refinement (Alg. 5) ---------------------------------------
+    @_locked
     def refine(self, iterations: int, seed: Optional[int] = None) -> int:
         """Continuous edge optimization (Alg. 5) over ``iterations`` vertices
         drawn with ``numpy.random.default_rng(seed)``, through the batched
@@ -614,35 +788,12 @@ class DEGIndex:
         ``expand_width`` / ``visited_size`` / ``hop_backend`` default to the
         index's ``DEGParams``; ``hop_budget`` (B,) caps each lane's
         expansions."""
-        E = self.params.expand_width if expand_width is None else expand_width
-        hb = self.params.hop_backend if hop_backend is None else hop_backend
-        vs = self.params.visited_size if visited_size is None else visited_size
-        q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32))
-                            ).to(self.device)
-        if seed_ids is None:
-            seeds = torch.full((q.shape[0], 1), self.medoid(),
-                               dtype=torch.int32, device=self.device)
-        else:
-            seeds = torch.as_tensor(np.asarray(seed_ids, np.int32)
-                                    ).to(self.device)
-            if seeds.ndim == 1:
-                seeds = seeds[:, None]
-
-        def dev_i32(x):
-            return None if x is None else torch.as_tensor(
-                np.asarray(x, np.int32)).to(self.device)
-
-        kw = dict(k=k, eps=eps, beam_width=beam_width,
-                  metric=self.params.metric, exclude=dev_i32(exclude),
-                  expand_width=E, visited_size=vs, hop_backend=hb,
-                  hop_budget=dev_i32(hop_budget))
-        if quantized in (None, "float32"):
-            return range_search(self.frozen(), self._dev_vectors, q, seeds,
-                                **kw)
-        rk = int(rerank_k) if rerank_k else 4 * k
-        return range_search(self.frozen(), self.store_for(quantized), q,
-                            seeds, rerank_k=max(rk, k),
-                            exact_vectors=self._dev_vectors, **kw)
+        return search_view(
+            self, self.frozen(), self._dev_vectors, queries, seed_ids,
+            exclude, k=k, eps=eps, beam_width=beam_width, quantized=quantized,
+            rerank_k=rerank_k, expand_width=expand_width,
+            visited_size=visited_size, hop_backend=hop_backend,
+            hop_budget=hop_budget)
 
     def search(self, queries: np.ndarray, k: int, eps: float = 0.1,
                beam_width: Optional[int] = None, seed: Optional[int] = None,

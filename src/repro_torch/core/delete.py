@@ -27,8 +27,8 @@ same (c, e) edge and the second removal raises ``KeyError``.  Here the
 plan is made against a :class:`_Shadow` edge set that every planned pair
 and split updates, so no edge is removed or added twice.  Where the greedy
 matching succeeds (almost every deletion on a real graph) the two packages
-delete edge for edge alike.  The JAX package's quarantine bookkeeping
-(serving's scrubber) is not ported.
+delete edge for edge alike.  The index's quarantine set (the scrubber's
+damaged vertices, ``serving/scrub.py``) follows the compaction's remap.
 """
 from __future__ import annotations
 
@@ -160,6 +160,16 @@ def delete_vertex(index: DEGIndex, v: int, *, rng=None,
             b.add_edge(v, u if u != v else last, w)
     b.clear_vertex(last)           # marks the row dirty for the device sync
     b.n -= 1
+
+    # the quarantine follows the remap: the deleted vertex leaves the set,
+    # and a quarantined last vertex carries its damage into slot v
+    q = index.quarantine
+    if q:
+        q.discard(v)
+        if last in q:
+            q.discard(last)
+            if v != last:
+                q.add(v)
 
     if refine_after:
         # one batched Alg. 5 sweep over the re-paired neighbors

@@ -16,6 +16,13 @@ re-syncs the cache by copying only the dirty rows in place
 copy is in place, a :class:`DEGraph` from ``device_graph()`` sees the rows
 of every later sync: hold no twin across a sync, or take ``freeze()``.
 
+Every host write also advances a mutation generation
+(:attr:`GraphBuilder.generation`): equal generations imply equal content.
+Epoch publishing (``core/epoch.py``) stamps it on each published snapshot.
+Where the JAX package deletes a dropped cache's buffers, so that a stale
+twin raises on use, torch has no such call: :meth:`GraphBuilder._drop_cache`
+drops the references, and a twin still held keeps its tensors.
+
 Slots that are transiently unused hold ``INVALID`` (= -1).  A valid DEG has
 no ``INVALID`` entries among its first ``n`` rows.
 """
@@ -89,6 +96,10 @@ class GraphBuilder:
         self._dev_adj = None          # device cache of adjacency/weights
         self._dev_w = None
         self._dirty: set[int] = set() # host rows ahead of the device cache
+        # mutation generation: advanced by every host write (bulk loads and
+        # capacity growth too), stamped on each published epoch
+        self._gen = 0
+        self._dev_sync_gen = -1       # generation the device cache matches
 
     # -- basic accessors -------------------------------------------------
     @property
@@ -110,6 +121,20 @@ class GraphBuilder:
     def vertex_degree(self, v: int) -> int:
         return int((self.adjacency[v] != INVALID).sum())
 
+    @property
+    def generation(self) -> int:
+        """Monotonic mutation counter of the host graph; equal generations
+        imply equal content under the index's mutation lock."""
+        return self._gen
+
+    def device_generation(self) -> int:
+        """The generation the device cache matches, or -1 when there is no
+        cache or it has dirty rows: ``device_generation() == generation``
+        iff ``device_graph()`` right now would copy nothing."""
+        if self._dev_adj is None:
+            return -1
+        return self._dev_sync_gen if not self._dirty else -1
+
     def edge_slot(self, u: int, v: int) -> int:
         """Slot of ``v`` in ``u``'s row, or -1."""
         row = self.adjacency[u]
@@ -127,14 +152,25 @@ class GraphBuilder:
 
     # -- device sync -----------------------------------------------------
     def mark_dirty(self, *rows: int) -> None:
-        """Record host-side row writes for the next ``device_graph()``."""
+        """Record host-side row writes for the next ``device_graph()``.
+        Mutators call this themselves; a caller that writes ``adjacency``
+        or ``weights`` directly must too."""
+        self._gen += 1
         if self._dev_adj is not None:
             self._dirty.update(int(r) for r in rows)
 
     def invalidate_device(self) -> None:
         """Drop the device cache entirely (bulk host rewrites)."""
-        self._dev_adj = self._dev_w = None
+        self._gen += 1
+        self._drop_cache()
         self._dirty = set()
+
+    def _drop_cache(self) -> None:
+        """Release the cached device buffers.  A ``device_graph()`` twin
+        still held keeps its own references (torch cannot delete a tensor
+        under its holder); holders that must outlive a sync use
+        ``freeze()``."""
+        self._dev_adj = self._dev_w = None
 
     def _upload(self) -> None:
         # torch.tensor copies, so a CPU twin never aliases the numpy rows
@@ -151,6 +187,7 @@ class GraphBuilder:
         if (self._dev_adj is None
                 or tuple(self._dev_adj.shape) != self.adjacency.shape):
             self._upload()
+            self._dev_sync_gen = self._gen
         elif self._dirty:
             rows = np.fromiter(self._dirty, dtype=np.int64)
             if rows.size * _FULL_SYNC_FRACTION >= self.capacity:
@@ -161,6 +198,7 @@ class GraphBuilder:
                     0, idx, torch.from_numpy(self.adjacency[rows]).to(self.device))
                 self._dev_w.index_copy_(
                     0, idx, torch.from_numpy(self.weights[rows]).to(self.device))
+            self._dev_sync_gen = self._gen
         self._dirty = set()
         return DEGraph(adjacency=self._dev_adj, weights=self._dev_w, n=self.n)
 
@@ -252,6 +290,7 @@ class GraphBuilder:
             raise RuntimeError("capacity exhausted; grow() first")
         v = self.n
         self.n += 1
+        self._gen += 1                 # n is part of the graph content
         return v
 
     def grow(self, new_capacity: int) -> None:

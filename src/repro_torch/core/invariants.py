@@ -6,13 +6,31 @@ the host graph:
 * no self loops, no duplicate edges;
 * connectivity: a single connected component.
 
-Out-of-range neighbor ids make a check return ``False`` instead of raising.
+Out-of-range neighbor ids make a vectorized check return ``False`` instead
+of raising, so a live index holding damaged rows can be audited.  The
+per-edge Python loops ``check_undirected_loop`` and
+``connected_components_loop`` are the references the vectorized checks are
+held against; they assume in-range ids.
+
+``audit_rows`` is the online scrubber's entry point: a per-row reason
+bitmask (the ``BAD_*`` bits) instead of one bool, so quarantine and repair
+touch only the damaged vertices.
 """
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 
 from .graph import DEGraph, GraphBuilder, INVALID
+
+# ``audit_rows`` reason bits (a row may carry several)
+BAD_RANGE = np.uint8(1)     # neighbor id outside [0, n)
+BAD_SELF = np.uint8(2)      # self loop
+BAD_DUP = np.uint8(4)       # duplicate neighbor in the row
+BAD_DEGREE = np.uint8(8)    # valid-slot count != d
+BAD_ASYM = np.uint8(16)     # neighbor does not list this vertex back
+BAD_WEIGHT = np.uint8(32)   # reverse edge exists but the weights disagree
 
 _W_RTOL, _W_ATOL = 1e-5, 1e-6
 
@@ -21,9 +39,13 @@ def _as_builder(g) -> GraphBuilder:
     return g.to_builder() if isinstance(g, DEGraph) else g
 
 
-def check_regular(g) -> bool:
+def check_regular(g, *, allow_partial: bool = False) -> bool:
+    """Every active row holds ``d`` valid slots (at most ``d`` with
+    ``allow_partial``)."""
     b = _as_builder(g)
     degs = (b.adjacency[: b.n] != INVALID).sum(axis=1)
+    if allow_partial:
+        return bool((degs <= b.degree).all())
     return bool((degs == b.degree).all())
 
 
@@ -66,16 +88,38 @@ def check_no_duplicate_edges(g) -> bool:
                      & (srt[:, 1:] != INVALID)).any())
 
 
-def connected_components(g) -> int:
-    """Number of connected components (vectorized frontier sweep)."""
+def check_undirected_loop(g) -> bool:
+    """Per-edge reference for :func:`check_undirected` (in-range ids)."""
+    b = _as_builder(g)
+    for u in range(b.n):
+        for s, v in enumerate(b.adjacency[u]):
+            if v == INVALID:
+                continue
+            v = int(v)
+            back = np.nonzero(b.adjacency[v] == u)[0]
+            if back.size != 1:
+                return False
+            if not np.isclose(b.weights[v, back[0]], b.weights[u, s],
+                              rtol=_W_RTOL, atol=_W_ATOL):
+                return False
+    return True
+
+
+def component_labels(g) -> np.ndarray:
+    """Component label of every active vertex (0-based, in discovery
+    order) by a vectorized frontier sweep; out-of-range ids are ignored."""
     b = _as_builder(g)
     n = b.n
     labels = np.full(n, -1, dtype=np.int64)
     adj = b.adjacency[:n]
     comp = 0
-    for start in range(n):
-        if labels[start] >= 0:
-            continue
+    cursor = 0
+    while True:
+        unseen = np.flatnonzero(labels[cursor:] < 0)
+        if unseen.size == 0:
+            break
+        start = cursor + int(unseen[0])
+        cursor = start
         labels[start] = comp
         frontier = np.array([start], dtype=np.int64)
         while frontier.size:
@@ -85,7 +129,95 @@ def connected_components(g) -> int:
             labels[nxt] = comp
             frontier = nxt
         comp += 1
-    return comp
+    return labels
+
+
+def connected_components(g) -> int:
+    """Number of connected components."""
+    b = _as_builder(g)
+    if b.n == 0:
+        return 0
+    return int(component_labels(b).max()) + 1
+
+
+def connected_components_loop(g) -> int:
+    """Breadth-first reference for :func:`connected_components`."""
+    b = _as_builder(g)
+    seen = np.zeros(b.n, dtype=bool)
+    comps = 0
+    for start in range(b.n):
+        if seen[start]:
+            continue
+        comps += 1
+        q = deque([start])
+        seen[start] = True
+        while q:
+            u = q.popleft()
+            for v in b.adjacency[u]:
+                if v != INVALID and not seen[v]:
+                    seen[int(v)] = True
+                    q.append(int(v))
+    return comps
+
+
+def check_connected(g) -> bool:
+    return connected_components(g) <= 1
+
+
+def unreachable_vertices(g, entry: int = 0) -> np.ndarray:
+    """Active vertices not reachable from ``entry`` (ascending ids)."""
+    b = _as_builder(g)
+    if b.n == 0:
+        return np.empty(0, dtype=np.int64)
+    labels = component_labels(b)
+    return np.flatnonzero(labels != labels[int(entry)])
+
+
+def audit_rows(b: GraphBuilder, rows) -> np.ndarray:
+    """The scrubber's chunked Table-1 audit: a ``uint8`` reason bitmask per
+    requested row (0 = clean).  Row-local properties, reciprocity and
+    weight agreement of every listed edge are checked with batched numpy
+    gathers.  A dangling reverse entry (``v`` lists ``u``, ``u`` does not
+    list ``v``) is flagged on ``v``'s row, so a sweep over all rows covers
+    both ends of every broken edge."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    out = np.zeros(rows.size, dtype=np.uint8)
+    n, d = b.n, b.degree
+    if rows.size == 0 or n == 0:
+        return out
+    adj = b.adjacency[rows]                     # (R, d)
+    w = b.weights[rows]
+    valid = adj != INVALID
+    out[valid.sum(axis=1) != d] |= BAD_DEGREE
+    in_range = valid & (adj >= 0) & (adj < n)
+    out[(valid & ~in_range).any(axis=1)] |= BAD_RANGE
+    out[(adj == rows[:, None]).any(axis=1)] |= BAD_SELF
+    srt = np.sort(adj, axis=1)
+    dup = (srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] != INVALID)
+    out[dup.any(axis=1)] |= BAD_DUP
+    # reciprocity and weights over in-range entries only (the rest are
+    # flagged BAD_RANGE and would poison the gather)
+    safe = np.where(in_range, adj, 0)
+    back = b.adjacency[safe]                    # (R, d, d)
+    match = back == rows[:, None, None]
+    has_back = match.any(axis=2)
+    out[(in_range & ~has_back).any(axis=1)] |= BAD_ASYM
+    slot = np.argmax(match, axis=2)             # first matching back slot
+    bw = b.weights[safe, slot]
+    w_ok = np.isclose(bw, w, rtol=_W_RTOL, atol=_W_ATOL)
+    out[(in_range & has_back & ~w_ok).any(axis=1)] |= BAD_WEIGHT
+    return out
+
+
+def assert_valid_deg(g, *, context: str = "") -> None:
+    """Assert every DEG invariant; the AssertionError names the first
+    that fails, in the JAX package's order and words."""
+    b = _as_builder(g)
+    assert check_no_self_loops(b), f"self loop {context}"
+    assert check_no_duplicate_edges(b), f"duplicate edge {context}"
+    assert check_undirected(b), f"asymmetric adjacency {context}"
+    assert check_regular(b), f"not {b.degree}-regular {context}"
+    assert check_connected(b), f"disconnected {context}"
 
 
 def check_table1(g) -> dict:

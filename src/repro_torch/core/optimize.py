@@ -21,9 +21,9 @@ Every chunk boundary and the end of a sweep tick the index's checkpoint
 cadence (``DEGIndex._checkpoint_tick``), and a sweep records its ``obs``
 metrics (chunk span, edge tasks, improved edges, vertices) into
 ``DEGIndex.metrics`` when one is attached, under the JAX package's names;
-``DEGIndex.refine_stats`` keeps the same totals either way.  Left out of
-the JAX module (``src/repro/core/optimize.py``): the epoch-publish tick
-at chunk boundaries, which waits for epoch publishing (ROADMAP A9).
+``DEGIndex.refine_stats`` keeps the same totals either way.  Chunk
+boundaries also tick epoch publishing (``DEGIndex._publish_tick``), so a
+long sweep shows its improvements to live readers mid-run.
 
 Note on Alg. 4 line 30: the paper's pseudocode says ``add (v1,v5),(v1,v3)``
 which contradicts the prose of step (4a) ("the edge (vE,vF) is replaced with
@@ -251,8 +251,10 @@ def refine_sweep(index: DEGIndex, vertices: Sequence[int], *,
         t_chunk = clock.now()
         if c0:
             # a chunk boundary is an invariant-clean point: the same
-            # checkpoint cadence as _insert_wave
+            # checkpoint cadence as _insert_wave; the epoch republish tick
+            # rides the same boundary
             index._checkpoint_tick()
+            index._publish_tick()
         verts_c = verts[c0:c0 + chunk]
         g = b.device_graph()
         conform = mrng_conform_batch(

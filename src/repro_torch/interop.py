@@ -51,8 +51,9 @@ def params_from_dict(params: dict) -> DEGParams:
 
 
 def index_from_numpy(vectors, adjacency, weights, n, params: dict,
-                     device="cuda") -> DEGIndex:
-    """A port ``DEGIndex`` holding the given graph and vector rows."""
+                     device="cuda", quarantine=()) -> DEGIndex:
+    """A port ``DEGIndex`` holding the given graph and vector rows, and the
+    scrubber's ``quarantine`` set of a JAX index."""
     vectors = np.asarray(vectors, np.float32)
     adjacency = np.asarray(adjacency, np.int32)
     p = params_from_dict(params)
@@ -62,6 +63,7 @@ def index_from_numpy(vectors, adjacency, weights, n, params: dict,
     idx._put_rows(vectors, 0)
     idx.builder = GraphBuilder(adjacency.shape[0], p.degree, device)
     idx.builder.load(adjacency, np.asarray(weights, np.float32), int(n))
+    idx.quarantine = {int(q) for q in quarantine}
     return idx
 
 

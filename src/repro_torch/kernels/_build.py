@@ -14,6 +14,11 @@ the flags, so an edited source is rebuilt and an unchanged one is not.
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
 non-zero code.  Nothing here runs at import time.
+
+Serving runs several threads (the async engine's scheduler, a writer
+refining the index) that may each make a kernel's first call: one lock
+serialises the build and the load, so a source is compiled once, into one
+temporary file, and loaded once.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+# re-entrant: library() builds through build_all() under it
+_lock = threading.RLock()
 
 
 def sources() -> list[str]:
@@ -61,6 +69,11 @@ def _target(name: str) -> Path:
 def build_all(names: list[str] | None = None) -> float:
     """Compile every missing library in parallel; returns wall seconds.
     The ptxas report of each build is kept beside it as ``<lib>.log``."""
+    with _lock:
+        return _build_missing(names)
+
+
+def _build_missing(names: list[str] | None) -> float:
     t0 = time.perf_counter()
     todo = [(n, _target(n)) for n in (names or sources())]
     todo = [(n, t) for n, t in todo if not t.exists()]
@@ -95,14 +108,18 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)
-    if lib is None:
-        target = _target(name)
-        if not target.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(target))
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)          # another thread may have loaded it
+        if lib is None:
+            target = _target(name)
+            if not target.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(target))
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
     return lib
 
 
@@ -110,10 +127,14 @@ def function(name: str, symbol: str, argtypes: list):
     """A C entry point of ``csrc/<name>.cu`` with its argument types set."""
     fn = _fns.get((name, symbol))
     if fn is None:
-        fn = getattr(library(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[(name, symbol)] = fn
+        lib = library(name)
+        with _lock:
+            fn = _fns.get((name, symbol))
+            if fn is None:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[(name, symbol)] = fn
     return fn
 
 

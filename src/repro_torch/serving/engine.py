@@ -20,7 +20,11 @@
   histograms (per bucket) in an ``obs.MetricsRegistry``, and a sampled
   query log;
 * **persistence**: :meth:`QueryEngine.from_snapshot` serves a restored
-  index; :meth:`QueryEngine.save` snapshots the served one.
+  index; :meth:`QueryEngine.save` snapshots the served one;
+* **live mutation**: with epoch publishing on
+  (``DEGIndex.enable_publishing``), a flush searches the current published
+  epoch, and the epoch's quarantined vertices are excluded from every
+  lane's results, a quarantined seed falling back to the epoch's medoid.
 
 A flush reads ids, distances, hops, evals and the visited-table occupancy
 back in one device-to-host copy (:func:`to_host`).
@@ -264,16 +268,22 @@ class QueryEngine:
         batch = self._pending[: self.max_batch]
         self._pending = self._pending[self.max_batch:]
         B = len(batch)
+        # epoch capture: with publishing on, the whole flush searches one
+        # immutable epoch, and its quarantined vertices are excluded from
+        # every lane's results and never used as a seed
         view = self.index.acquire_view()
         try:
+            quarantine = tuple(getattr(view, "quarantine", ()) or ())
+            qset = set(quarantine)
             items = [
                 _buckets.BatchItem(
                     query=q,
                     # an exploration seed never reappears in its own results
                     exclude=list(dict.fromkeys(
                         ([sv] if sv is not None and session else [])
-                        + list(ex))),
-                    seed_vertex=sv)
+                        + list(ex) + list(quarantine))),
+                    seed_vertex=(None if sv is not None and sv in qset
+                                 else sv))
                 for (q, ex, _, session, sv, _, _) in batch]
             bucket = next(b for b in self.buckets if b >= B)
             qs, seeds, excl = _buckets.pad_batch(items, bucket,

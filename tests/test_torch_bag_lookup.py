@@ -22,6 +22,7 @@ from repro.models import embedding_bag as jeb
 from repro_torch.kernels.bag_lookup import ops as bag_ops
 from repro_torch.kernels.bag_lookup.ref import bag_lookup_ref
 from repro_torch.models import embedding_bag as teb
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 INVALID = -1

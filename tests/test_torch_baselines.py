@@ -26,6 +26,7 @@ from repro_torch.core.invariants import check_table1
 from repro_torch.core.search import search_graph
 from repro_torch.interop import graph_to_numpy, result_to_numpy
 from repro_torch.kernels.l2_topk import l2_topk, l2_topk_ref
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _rand(rng, shape):

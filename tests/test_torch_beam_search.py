@@ -30,6 +30,7 @@ from repro_torch.interop import (beam_state_to_numpy, graph_from_numpy,
                                   store_from_numpy)
 from repro_torch.kernels.beam_search import ops as bs_ops
 from repro_torch.quant.store import VectorStore
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 B = 12

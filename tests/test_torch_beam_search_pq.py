@@ -50,6 +50,7 @@ from repro_torch.kernels.fused_hop import ops as fh_ops
 from repro_torch.kernels.gather_dist import ops as gd_ops
 from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.quant.store import VectorStore, make_store
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 B = 12

@@ -37,6 +37,7 @@ from repro_torch.kernels.beam_merge import ops as bm_ops
 from repro_torch.kernels.beam_search import ops as bs_ops
 from repro_torch.kernels.gather_dist_q import ops as gdq_ops
 from repro_torch.quant.store import VectorStore
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 B = 12

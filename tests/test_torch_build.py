@@ -11,6 +11,7 @@ from repro_torch.core.build import DEGParams, build_deg
 from repro_torch.core.invariants import check_table1
 from repro_torch.interop import (graph_to_numpy, index_from_numpy,
                                   result_to_numpy)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N, DIM, DEGREE, WAVE = 400, 16, 8, 16
 
@@ -85,4 +86,3 @@ def test_carried_across_index_answers_like_jax(both, data):
     ids = got.ids.numpy()
     for lane, v in enumerate(sv):
         assert v not in ids[lane] and not set(seen[lane]) & set(ids[lane])
-

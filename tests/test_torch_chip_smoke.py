@@ -14,6 +14,7 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N, N_QUERIES, BATCH, N_SMALL = 800, 64, 32, 300
 #: the script's own check, which the module's rehearsal replaces
@@ -72,7 +73,9 @@ def recsys(rehearsal):
 
 
 def test_phase2_rows(rehearsal, recsys):
-    rows, host_loop = cs.phase2("cpu", n_queries=64)
+    # every check at every shape over 3,000 rows; the ground truth's scan
+    # over the audio size's 53,387
+    rows, host_loop = cs.phase2("cpu", n_queries=64, n_rows=3000)
     rows["bag_lookup"] = cs.bag_checks(recsys, "cpu")[0]   # as main() does
     assert set(rows) == set(cs.KERNELS)
     # the host loops' launches beside the whole search, by counter: none

@@ -18,6 +18,7 @@ from repro_torch.kernels.beam_merge import ops as bm_ops
 from repro_torch.kernels.fused_hop import ops as fh_ops
 from repro_torch.kernels.gather_dist import ops as gd_ops
 from repro_torch.quant.store import VectorStore
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("metric", ["l2", "sqeuclidean", "ip", "cos"])

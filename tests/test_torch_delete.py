@@ -20,6 +20,7 @@ from repro_torch.core.graph import INVALID
 from repro_torch.core.invariants import check_invariants, check_table1
 from repro_torch.core.metrics import recall_at_k
 from repro_torch.interop import graph_to_numpy, index_from_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 KW = dict(degree=8, k_ext=16)
 

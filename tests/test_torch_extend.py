@@ -23,6 +23,7 @@ from repro_torch.core.invariants import check_table1
 from repro_torch.core.mrng import mrng_conform_mask
 from repro_torch.interop import graph_to_numpy, index_from_numpy
 from repro_torch.kernels.mrng_occlusion import ops as occ_ops
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N, DIM, DEGREE = 400, 16, 8
 

@@ -31,6 +31,7 @@ from repro_torch.core.build import DEGParams, build_deg
 from repro_torch.kernels.extend_select import ops as es_ops
 from repro_torch.kernels.extend_select import ref as es_ref
 from repro_torch.kernels.mrng_occlusion import ops as occ_ops
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 N, DIM, DEGREE, K = 400, 16, 8, 16

@@ -25,6 +25,7 @@ from repro.core import visited as jv
 from repro_torch.kernels.beam_merge import ops as bm_ops
 from repro_torch.kernels.fused_hop import ops as fh_ops
 from repro_torch.kernels.gather_dist import ops as gd_ops
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 T = torch.from_numpy

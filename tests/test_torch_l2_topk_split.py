@@ -21,6 +21,7 @@ import torch
 from repro.kernels.l2_topk import l2_topk as j_l2_topk
 from repro_torch.kernels.l2_topk import ops
 from repro_torch.kernels.l2_topk.ref import l2_topk_ref
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 SMS = ops.H100_SMS
 RTOL, ATOL = 1e-5, 1e-5

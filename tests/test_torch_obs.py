@@ -24,6 +24,7 @@ from repro_torch.interop import index_from_numpy
 from repro_torch.obs import (LATENCY_METRIC, MetricsRegistry, QueryLogWriter,
                              Sampler, make_record, read_query_log,
                              replay_registry)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src", "repro_torch")

@@ -20,6 +20,7 @@ from repro_torch.core.mrng import mrng_conform_mask
 from repro_torch.core.optimize import (dynamic_edge_optimization,
                                        optimize_edge, refine_sweep)
 from repro_torch.interop import index_from_numpy
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 N, DIM, DEGREE = 200, 16, 8
 

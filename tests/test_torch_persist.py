@@ -29,6 +29,7 @@ from repro_torch.interop import result_to_numpy
 from repro_torch.persist import (SnapshotChecksumError, SnapshotFormatError,
                                  load_index, read_snapshot, save_index,
                                  write_snapshot)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 DIM = 8
 CODECS = [None, "fp16", "sq8", "pq"]

@@ -22,6 +22,7 @@ from repro_torch.persist import (WALCorruptionError, WALError, WALWriter,
                                  save_index)
 from repro_torch.persist.wal import FILE_MAGIC
 from repro_torch.resilience import FaultInjected, FaultPlan
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 DIM = 6
 PARAMS = dict(degree=6, k_ext=12)

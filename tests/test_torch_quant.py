@@ -32,6 +32,7 @@ from repro_torch.kernels.gather_dist_q import ops as gdq_ops
 from repro_torch.kernels.pq_adc import ops as adc_ops
 from repro_torch.quant import codec, pq
 from repro_torch.quant.store import VectorStore, as_store, make_store
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 T = torch.tensor          # a copy: arrays from JAX are read-only

@@ -38,6 +38,7 @@ from repro_torch.interop import (index_from_numpy, result_to_numpy,
 from repro_torch.kernels.fused_hop import ops as fh_ops
 from repro_torch.persist import read_snapshot
 from repro_torch.quant.store import make_store
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 K = 10

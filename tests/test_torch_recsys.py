@@ -32,6 +32,7 @@ from repro_torch.data.recsys import CriteoLikeStream as TStream
 from repro_torch.interop import recsys_model_from_numpy
 from repro_torch.kernels.bag_lookup import ops as bag_ops
 from repro_torch.models import recsys as TR
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 ARCHS = ["dcn-v2", "deepfm", "din", "dlrm-mlperf"]

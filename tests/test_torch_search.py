@@ -19,6 +19,7 @@ from repro_torch.core import beam
 from repro_torch.core.search import range_search, search_graph
 from repro_torch.interop import (beam_state_to_numpy, graph_from_numpy,
                                   result_to_numpy)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 _FIXTURE = os.path.join(os.path.dirname(__file__), "data",

@@ -29,6 +29,7 @@ from repro_torch.obs import QueryLogWriter, read_query_log
 from repro_torch.serving import QueryEngine
 from repro_torch.serving import buckets as _buckets
 from repro_torch.serving.engine import to_host
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 N, DIM = 400, 8

@@ -21,6 +21,7 @@ from repro_torch.core.invariants import check_table1
 from repro_torch.interop import result_to_numpy
 from repro_torch.persist import (SnapshotChecksumError, SnapshotFormatError,
                                  load_index, read_snapshot)
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "index_snapshot_golden.npz")

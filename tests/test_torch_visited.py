@@ -8,6 +8,7 @@ import torch
 
 from repro.core import visited as jv
 from repro_torch.core import visited as tv
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 INVALID = -1
 
