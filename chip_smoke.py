@@ -7,8 +7,10 @@ compressed stores (fp16, sq8, pq), save the index and serve the restored
 copy through the query engine, recover a journaled index and resume a
 checkpointed build, mutate the restored index while the sync and async
 engines serve published epochs of it, scrub and repair injected damage,
-run the serve and build_index launchers, build and serve the paper's
-baseline graphs, refine
+run the serve and build_index launchers, shard the index over
+torch.distributed (at world size 1, and as four ranks on the one card)
+and snapshot the shards, build and serve the paper's baseline graphs,
+refine
 the index, delete vertices from it, and serve again; then serve the
 recsys models DIN and DCN-v2 at their published widths, their embedding
 bags through the bag_lookup kernel.
@@ -176,7 +178,46 @@ Phases (any failure raises and exits non-zero):
      --inject-corruption 16 as a subprocess, its resilience:, scrub: and
      invariants: lines required; launch.build_index --out at
      N_BUILD_INDEX rows, loaded back;
-  11. the kernels' JSON line, then the final JSON line.
+  11. (after phases 9 and 10, while phase 3's graph and phase 4's ground
+     truth hold) the sharded DEG (distributed/, persist/sharded.py,
+     launch/mesh.py) on phase 3's data:
+     11a. world size 1 (NCCL, a (1, 1) mesh): build_sharded_deg(base, 1)
+     at the audio config (waves of 64), its build seconds and Table 1;
+     ShardedDEG.search of the 10,000 queries in batches of 256 (k=10,
+     eps=0.1) after one warm-up batch, ids and dists torch.equal to
+     range_search over the same sub-DEG, one beam_search launch a batch
+     and none of the host-loop kernels, recall@10;
+     11b. S=2 over all rows (26,694 + 26,693): both shards built on the
+     card (seconds, Table 1 and graph quality, Eq. 3, per shard); the
+     composed search (each shard's range_search, the stable merge) and
+     its recall@10 against phase 4's ground truth; sq8 per shard; pq per
+     shard on a second S=2 index of N_HOST rows (the host k-means fit at
+     full size would take about as long as phase 4b's);
+     11d. save_sharded / load_sharded of the sq8 S=2 index (seconds,
+     bytes, every stacked tensor torch.equal); reshard-on-restore to S=1
+     (a rebuild: n_total, Table 1, adjacency torch.equal to 11a's), its
+     sq8 world-1 search torch.equal to 11a's index under sq8 (the S=2
+     restored copy is searched by the ranks of 11c: at world size 1 the
+     model axis has one rank, and the port searches only S equal to it);
+     11c. four ranks on the one card (torch.multiprocessing spawn, gloo,
+     the (2, 2) debug mesh, a FileStore; a rank that fails, or any rank
+     still running after RANK_TIMEOUT_S, fails the run): each loads the
+     stacked tensors of 11b and 11d and runs make_sharded_search over the
+     10,000 queries in batches of 256 (after one warm-up batch) under
+     float32, sq8 (rerank 40, sq8-serving), the restored sq8 copy and pq
+     (rerank 80, eps 0.2, pq-compact), float32 after drop_shard(0), one
+     exploration batch with 32 excluded ids, sharded_brute_topk (l2, over
+     data x model, on the first 53,384 rows), compressed_psum and the
+     sharded lookup; each reports its beam_search launches (one a local
+     search) and its ms a batch in local search, merge and data gather.
+     Held: every rank's output equal to every other's; float32 equal to
+     11b's composed search; recall@10 >= RECALL_FLOOR; the sq8 and pq
+     dists the exact float distances (rtol 1e-5); the restored copy's
+     results equal to the live one's; after drop_shard(0) every id odd;
+     no excluded id returned; the brute-force ids against
+     exact_knn_batched under GT_AGREE / GT_RTOL; compressed_psum
+     bit-identical on every rank and within its bound; every group gloo;
+  12. the kernels' JSON line, then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
@@ -185,7 +226,10 @@ exploration sessions, the refinement, the deletion, phase 9's pieces
 sessions, insert and delete, the journaled and checkpointed builds and
 their recovery), phase 10's (the epoch's serving and the mutations under
 it, the scrub pass, the async engines' flushes, the writer and the
-engines of 10d together, build_index) and the recsys serving only;
+engines of 10d together, build_index), phase 11's (the sharded builds,
+the world-1 and composed searches, the reshard and the restored copy's
+search; the ranks' searches, counted in each rank and added) and the
+recsys serving only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.  Each counted piece that searches is held to one beam_search
 launch for each of its range_search calls where the search kernel takes
@@ -291,6 +335,8 @@ KERNELS = {
 # path, and phase 2's comparisons against the host loop launch each
 HOST_LOOP_ONLY = ("gather_dist", "gather_dist[fp16]", "gather_dist_q",
                   "beam_merge", "fused_hop", "pq_adc")
+HOP_KERNELS = ("beam_merge", "gather_dist", "gather_dist_q", "pq_adc",
+               "fused_hop")
 # phase 4b: the compressed stores served under the "classic" preset
 QUANT_SERVED = ("fp16", "sq8-serving", "pq-serving")
 # phase 9: persistence and the serving engine on the audio-size index
@@ -308,6 +354,12 @@ LIVE_TICKS = 3                     # writer ticks while the engines serve
 LIVE_ROUNDS = 4                    # serving rounds at least, per engine
 LIVE_PARTIAL = 64                  # submits with an expired deadline
 N_BUILD_INDEX = 4_000              # launch.build_index --out
+# phase 11: the sharded DEG
+N_SHARDS = 2
+MESH = (2, 2)                      # 11c: the debug mesh (data, model)
+RANK_TIMEOUT_S = 300               # 11c: a rank still running then fails
+N_EXPLORE_EXCLUDE = 32             # 11c: excluded ids of the exploration batch
+LOOKUP_ROWS, LOOKUP_DIM = 65_536, 16   # 11c: the sharded lookup's table
 # DEGIndex.memory_stats() at the audio size (n=53,387, m=192), by
 # quant/codec.py::store_bytes; pq: 24 code bytes a row plus the codebooks
 AUDIO_STORE_BYTES = {"float32": 41_001_216, "fp16": 20_500_608,
@@ -1353,30 +1405,34 @@ def range_search_calls(calls: list):
             m.range_search = inner
 
 
-def count_searches(count, what: str, fn, *args, kernel: bool, **kwargs):
+def count_searches(count, what: str, fn, *args, kernel: bool,
+                   local_searches: int | None = None, **kwargs):
     """``count(fn, ...)``, one counted piece of the main path, and its
     launches read just after it: one beam_search launch for each of its
-    range_search calls where ``kernel`` (the search kernel takes their
-    configuration), and then no beam_merge, gather_dist, gather_dist_q,
-    pq_adc or fused_hop launch beside them; no beam_search launch where
-    not.
-    Returns fn's result and the number of calls."""
+    range_search calls (or, for the sharded step, which drives the beam
+    engine itself, each of its ``local_searches``) where ``kernel`` (the
+    search kernel takes their configuration), and then no beam_merge,
+    gather_dist, gather_dist_q, pq_adc or fused_hop launch beside them;
+    no beam_search launch where not.
+    Returns fn's result and the number of searches."""
     from repro_torch.kernels.beam_search import ops as bs
 
     calls = []
     with range_search_calls(calls):
         out = count(fn, *args, **kwargs)
+    n = len(calls) if local_searches is None else local_searches
     counters = launch_counters()
-    hop = {name: getattr(*counters[name]) for name in (
-        "beam_merge", "gather_dist", "gather_dist_q", "pq_adc", "fused_hop")}
-    log(f"  {what}: {len(calls)} range_search calls; launches: beam_search "
+    hop = {name: getattr(*counters[name]) for name in HOP_KERNELS}
+    kind = "range_search calls" if local_searches is None else \
+        "local searches"
+    log(f"  {what}: {n} {kind}; launches: beam_search "
         f"{bs.launches}, " + ", ".join(f"{n} {v}" for n, v in hop.items()))
-    expect_launches("beam_search", bs.launches, len(calls) if kernel else 0,
-                    f"range_search calls ({what})")
+    expect_launches("beam_search", bs.launches, n if kernel else 0,
+                    f"{kind} ({what})")
     if kernel:
-        for name, n in hop.items():
-            expect_launches(name, n, 0, what)
-    return out, len(calls)
+        for name, v in hop.items():
+            expect_launches(name, v, 0, what)
+    return out, n
 
 
 def check_main_path_launches(launches: dict, host_loop: dict) -> None:
@@ -3068,6 +3124,509 @@ def persist_serve_phase(idx, base, queries, served, quant_served, device,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the sharded DEG over torch.distributed
+# ---------------------------------------------------------------------------
+def shard_graph(sd, s: int):
+    """Shard ``s`` of a ShardedDEG's stacked tensors as a DEGraph."""
+    import torch
+
+    from repro_torch.core.graph import DEGraph
+
+    return DEGraph(adjacency=sd.adjacency[s],
+                   weights=torch.zeros(sd.adjacency.shape[1:],
+                                       device=sd.adjacency.device),
+                   n=int(sd.n[s]))
+
+
+def composed_search(sd, queries, *, k=K, eps=EPS, batch=BATCH):
+    """The sharded float32 search without collectives: each shard's
+    ``range_search`` from its seed, global ids, the stable merge of the
+    shards' lists in shard order.  Returns (ids, dists) tensors."""
+    import torch
+
+    from repro_torch.core.search import range_search
+
+    S = sd.n_shards
+    dev = sd.adjacency.device
+    out_ids, out_d = [], []
+    for lo in range(0, len(queries), batch):
+        q = torch.as_tensor(queries[lo: lo + batch], device=dev)
+        vals, ids = [], []
+        for s in range(S):
+            seeds = sd.seeds[s: s + 1].reshape(1, 1).expand(len(q), 1)
+            r = range_search(shard_graph(sd, s), sd.vectors[s], q,
+                             seeds.contiguous(), k=k, eps=eps)
+            vals.append(r.dists)
+            ids.append(torch.where(r.ids == INVALID, INVALID, r.ids * S + s))
+        top, pos = torch.sort(torch.cat(vals, 1), dim=1, stable=True)
+        out_d.append(top[:, :k])
+        out_ids.append(torch.gather(torch.cat(ids, 1), 1, pos[:, :k]))
+    return torch.cat(out_ids), torch.cat(out_d)
+
+
+def sharded_batches(search, queries, *, batch=BATCH):
+    """``search`` (a batch of host queries -> (ids, dists)) over every
+    batch; returns the (ids, dists) tensors."""
+    import torch
+
+    ids, dists = [], []
+    for lo in range(0, len(queries), batch):
+        i, d = search(queries[lo: lo + batch])
+        ids.append(i)
+        dists.append(d)
+    return torch.cat(ids), torch.cat(dists)
+
+
+def table1(what: str, builder) -> None:
+    from repro_torch.core.invariants import check_table1
+
+    inv = check_table1(builder)
+    log(f"  {what} table-1: {inv}")
+    if not all(inv.values()):
+        raise AssertionError(f"{what}: Table-1 invariants broken: {inv}")
+
+
+def build_shards(base, n_shards: int, device, count, tag: str):
+    """build_sharded_deg at the audio config (waves of WAVE), counted: one
+    beam_search launch a wave and one extend_select launch an extend
+    block; Table 1 on every shard.  Returns the ShardedDEG."""
+    from repro_torch.configs.deg import DEG_PAPER_CONFIGS
+    from repro_torch.core.beam import search_kernel_eligible
+    from repro_torch.distributed.index import build_sharded_deg
+    from repro_torch.kernels.extend_select import ops as es_ops
+
+    params = DEG_PAPER_CONFIGS["audio"]
+    t0 = time.perf_counter()
+    sd, calls = count_searches(
+        count, f"{tag} build", build_sharded_deg, base, n_shards, params,
+        wave_size=WAVE, device=device,
+        kernel=search_kernel_eligible(base, "l2", "composed", device))
+    sync()
+    secs = time.perf_counter() - t0
+    waves = sum(-(-(sh.n - params.degree - 1) // WAVE) for sh in sd.shards)
+    blocks = sum(extend_blocks(sh.build_stats["vertices"])
+                 for sh in sd.shards)
+    if calls != waves:
+        raise AssertionError(f"{calls} range_search calls for {waves} "
+                             "insert waves")
+    log(f"{tag} build of {len(base)} rows in {n_shards} shards "
+        f"{[sh.n for sh in sd.shards]}: {secs:.2f} s; extend_select "
+        f"launches {es_ops.launches} for {blocks} extend blocks")
+    expect_launches("extend_select", es_ops.launches, blocks,
+                    "extend blocks")
+    for s, sh in enumerate(sd.shards):
+        st = sh.build_stats
+        log(f"  {tag} shard {s}: n={sh.n}, search_s {st['search_s']:.2f}, "
+            f"extend_s {st['extend_s']:.2f}, seed {int(sd.seeds[s])}")
+        table1(f"{tag} shard {s}", sh.builder)
+    return sd, secs
+
+
+def world1_phase(base, queries, gt, device, count, tmp, *, k=K, eps=EPS,
+                 batch=BATCH, n_host=N_HOST) -> dict:
+    """11a, 11b and 11d at world size 1 (NCCL on the card, gloo on the
+    CPU): see the module docstring.  Writes the stacked tensors the ranks
+    of 11c search to ``tmp``; returns its measurements and the composed
+    float32 search of the S=2 index."""
+    import torch
+
+    from repro_torch.configs.deg import QUANT_PRESETS
+    from repro_torch.core.beam import search_kernel_eligible
+    from repro_torch.core.metrics import graph_quality, recall_at_k
+    from repro_torch.core.search import range_search
+    from repro_torch.distributed.index import ShardedDEG
+    from repro_torch.interop import sharded_to_numpy
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.launch.ranks import process_group
+
+    backend = "nccl" if str(device) != "cpu" else "gloo"
+    kernel = search_kernel_eligible(base, "l2", "composed", device)
+    sq8_rr = QUANT_PRESETS["sq8-serving"].rerank_k
+    out = {}
+    with process_group(backend):
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        groups = {a: axis_group(mesh, a).backend for a in ("data", "model")}
+        log(f"phase11a world size 1, mesh (1, 1) on {device}: default "
+            f"group {backend}; groups {groups}")
+        if set(groups.values()) != {backend}:
+            raise AssertionError(f"phase11a: groups {groups}, want {backend}")
+        # 11a: one shard at world size 1
+        sd1, out["build1_s"] = build_shards(base, 1, device, count,
+                                            "phase11a")
+        sd1.search(mesh, queries[:batch], k=k, eps=eps)   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        (ids1, d1), n = count_searches(
+            count, "phase11a sharded search", sharded_batches,
+            lambda q: sd1.search(mesh, q, k=k, eps=eps), queries,
+            batch=batch, kernel=kernel,
+            local_searches=-(-len(queries) // batch))
+        sync()
+        secs = time.perf_counter() - t0
+        g = shard_graph(sd1, 0)
+        for lo in range(0, len(queries), batch):
+            q = torch.as_tensor(queries[lo: lo + batch], device=device)
+            seeds = torch.full((len(q), 1), int(sd1.seeds[0]),
+                               dtype=torch.int32, device=device)
+            r = range_search(g, sd1.vectors[0], q, seeds, k=k, eps=eps)
+            if not (torch.equal(r.ids, ids1[lo: lo + batch])
+                    and torch.equal(r.dists, d1[lo: lo + batch])):
+                raise AssertionError("phase11a: the world-1 sharded search "
+                                     "differs from range_search at batch "
+                                     f"{lo // batch}")
+        rec1 = recall_at_k(ids1.cpu().numpy(), gt)
+        log(f"phase11a search: {len(queries)} queries in {n} batches, "
+            f"{secs:.3f} s = {len(queries) / secs:.1f} QPS, recall@{k} "
+            f"{rec1:.4f}; ids and dists torch.equal to range_search")
+        idle_share(lambda: sd1.search(mesh, queries[:batch], k=k, eps=eps),
+                   secs * 1e3 / n, f"phase11a one batch of {batch}")
+        out.update(world1_qps=len(queries) / secs, world1_recall=rec1)
+
+        # 11b: two shards over every row
+        sd2, out["build2_s"] = build_shards(base, N_SHARDS, device, count,
+                                            "phase11b")
+        for s, sh in enumerate(sd2.shards):
+            t0 = time.perf_counter()
+            gq = graph_quality(sh.builder, sh.vectors, "l2")
+            log(f"  phase11b shard {s} graph quality (Eq. 3) {gq:.4f} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            out[f"gq{s}"] = gq
+        t0 = time.perf_counter()
+        (ids2, d2), _ = count_searches(
+            count, "phase11b merged search", composed_search, sd2, queries,
+            k=k, eps=eps, batch=batch, kernel=kernel)
+        sync()
+        rec2 = recall_at_k(ids2.cpu().numpy(), gt)
+        log(f"phase11b merged search (each shard's range_search, the "
+            f"stable merge): {time.perf_counter() - t0:.3f} s, recall@{k} "
+            f"{rec2:.4f}")
+        if rec2 < RECALL_FLOOR:
+            raise AssertionError(f"phase11b recall@{k} {rec2:.4f} < "
+                                 f"{RECALL_FLOOR}")
+        out.update(merged=(ids2, d2), merged_recall=rec2)
+        t0 = time.perf_counter()
+        sq8 = sd2.quantize("sq8")
+        sync()
+        log(f"phase11b sq8 per shard: {time.perf_counter() - t0:.3f} s, "
+            f"{sq8.memory_stats()}")
+        pq_base = base[:n_host]
+        sdp, _ = build_shards(pq_base, N_SHARDS, device, count,
+                              "phase11b pq index")
+        t0 = time.perf_counter()
+        pq = sdp.quantize("pq")
+        sync()
+        out["pq_s"] = time.perf_counter() - t0
+        log(f"phase11b pq per shard (host fit, seed = shard) on {n_host} "
+            f"rows: {out['pq_s']:.2f} s, {pq.memory_stats()}")
+
+        # 11d: the sharded snapshot of the sq8 index
+        path = os.path.join(tmp, "sharded_sq8.npz")
+        t0 = time.perf_counter()
+        sq8.save(path)
+        save_s, nbytes = time.perf_counter() - t0, os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = ShardedDEG.load(path, device=device)
+        sync()
+        load_s = time.perf_counter() - t0
+        for name in ("adjacency", "vectors", "n", "seeds", "codes",
+                     "scales"):
+            if not torch.equal(getattr(back, name), getattr(sq8, name)):
+                raise AssertionError(f"phase11d: the restored {name} "
+                                     "differs")
+        log(f"phase11d save_sharded {save_s:.3f} s, {nbytes} bytes; "
+            f"load_sharded on {device} {load_s:.3f} s (re-encodes sq8); "
+            "every stacked tensor torch.equal")
+        t0 = time.perf_counter()
+        re1, _ = count_searches(
+            count, "phase11d reshard to 1 shard", ShardedDEG.load, path,
+            n_shards=1, wave_size=WAVE, device=device, kernel=kernel)
+        sync()
+        reshard_s = time.perf_counter() - t0
+        if re1.n_total != len(base) or re1.codec != "sq8":
+            raise AssertionError(f"phase11d: reshard holds {re1.n_total} "
+                                 f"rows under {re1.codec}")
+        table1("phase11d reshard", re1.shards[0].builder)
+        if not torch.equal(re1.adjacency, sd1.adjacency):
+            raise AssertionError("phase11d: the S=1 rebuild differs from "
+                                 "11a's build of the same rows")
+        live = sd1.quantize("sq8")
+        (ids_r, d_r), _ = count_searches(
+            count, "phase11d restored sq8 world-1 search", sharded_batches,
+            lambda q: re1.search(mesh, q, k=k, eps=eps, rerank_k=sq8_rr),
+            queries, batch=batch, kernel=kernel,
+            local_searches=-(-len(queries) // batch))
+        ids_l, d_l = sharded_batches(
+            lambda q: live.search(mesh, q, k=k, eps=eps, rerank_k=sq8_rr),
+            queries, batch=batch)
+        if not (torch.equal(ids_r, ids_l) and torch.equal(d_r, d_l)):
+            raise AssertionError("phase11d: the restored copy's world-1 "
+                                 "search differs from the live one's")
+        log(f"phase11d reshard-on-restore to 1 shard: {reshard_s:.2f} s, "
+            f"n_total {re1.n_total}, adjacency torch.equal to 11a's; its "
+            f"sq8 world-1 search (rerank {sq8_rr}) torch.equal to 11a's "
+            f"index under sq8, recall@{k} "
+            f"{recall_at_k(ids_r.cpu().numpy(), gt):.4f}")
+        out.update(save_s=save_s, bytes=nbytes, load_s=load_s,
+                   reshard_s=reshard_s)
+    torch.save({"stacked": {"float32": sharded_to_numpy(sd2),
+                            "sq8": sharded_to_numpy(sq8),
+                            "sq8_restored": sharded_to_numpy(back),
+                            "pq": sharded_to_numpy(pq)},
+                "queries": np.asarray(queries, np.float32),
+                "base": np.asarray(base, np.float32)},
+               os.path.join(tmp, "shards.pt"))
+    return out
+
+
+def shard_rank(rank, world, tmp, cfg) -> dict:
+    """One of 11c's ranks: the (2, 2) debug mesh over gloo on the card,
+    the stacked tensors of 11b and 11d loaded to it, every search of 11c
+    in batches with its launches and stage times counted, and the
+    collectives.  Returns host arrays."""
+    import torch
+
+    from repro_torch.distributed.collectives import (
+        compressed_psum, make_sharded_lookup, sharded_brute_topk)
+    from repro_torch.distributed.index import make_sharded_search
+    from repro_torch.interop import sharded_from_numpy
+    from repro_torch.launch.mesh import axis_group, make_mesh
+
+    device = cfg["device"]
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(cfg["mesh"], ("data", "model"), device)
+    every = axis_group(mesh, ("data", "model"))
+    out = {"index": every.index, "launches": {}, "calls": {},
+           "stage_ms": {}, "wall_s": {},
+           "backends": {str(a): axis_group(mesh, a).backend
+                        for a in ("data", "model", ("data", "model"))}}
+    data = torch.load(os.path.join(tmp, "shards.pt"), weights_only=False)
+    queries, base = data["queries"], data["base"]
+    k, eps, batch = cfg["k"], cfg["eps"], cfg["batch"]
+    ops = launch_counters()
+
+    def index(name):
+        return sharded_from_numpy(**data["stacked"][name], device=device)
+
+    def run(tag, sd, qs, *, eps=eps, rerank_k=0, exclude=None):
+        stage = {}
+        f = make_sharded_search(
+            mesh, k=k, eps=eps, metric=sd.params.metric, codec=sd.codec,
+            rerank_k=rerank_k, stage_ms=stage,
+            exclude_width=0 if exclude is None else exclude.shape[1])
+        for m, attr in ops.values():
+            setattr(m, attr, 0)
+        t0 = time.perf_counter()
+        ids, dists = [], []
+        for lo in range(0, len(qs), batch):
+            q = torch.as_tensor(qs[lo: lo + batch], device=device)
+            extra = [] if exclude is None else [torch.as_tensor(
+                exclude[lo: lo + batch], device=device)]
+            i, d = f(*sd.search_args(), q, *extra)
+            ids.append(i.cpu())
+            dists.append(d.cpu())
+        calls = len(ids)
+        out["wall_s"][tag] = time.perf_counter() - t0
+        out["launches"][tag] = {n: getattr(m, a) for n, (m, a) in ops.items()}
+        out["calls"][tag] = calls
+        out["stage_ms"][tag] = {s: v / calls for s, v in stage.items()}
+        out[tag] = (torch.cat(ids).numpy(), torch.cat(dists).numpy())
+
+    f32 = index("float32")
+    run("warm-up", f32, queries[:batch])       # the groups' first calls
+    run("float32", f32, queries)
+    run("float32_drop", f32.drop_shard(0), queries)
+    run("sq8", index("sq8"), queries, rerank_k=cfg["sq8_rerank"])
+    run("sq8_restored", index("sq8_restored"), queries,
+        rerank_k=cfg["sq8_rerank"])
+    run("pq", index("pq"), queries, eps=cfg["pq_eps"],
+        rerank_k=cfg["pq_rerank"])
+    # one exploration batch: the query is an indexed row, which is
+    # excluded with N_EXPLORE_EXCLUDE - 1 more ids, some INVALID
+    rng = np.random.default_rng(11)
+    n_total = int(f32.n.sum())
+    rows = rng.choice(n_total, size=batch, replace=False)
+    ex = rng.integers(0, n_total, size=(batch, cfg["n_exclude"]))
+    ex[:, 0] = rows
+    ex[::4, 1:8] = INVALID
+    out["explore_exclude"] = ex.astype(np.int32)
+    run("explore", f32, base[rows], exclude=ex.astype(np.int32))
+
+    n_db = len(base) // every.size * every.size
+    t0 = time.perf_counter()
+    vals, ids = sharded_brute_topk(
+        mesh, k=k, shard_axes=("data", "model"), metric="l2")(
+        torch.as_tensor(queries, device=device),
+        torch.as_tensor(base[:n_db], device=device))
+    out["brute"] = (vals.cpu().numpy(), ids.cpu().numpy(), n_db)
+    out["wall_s"]["brute"] = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(every.index)
+    x = torch.randn(4096, generator=gen) * 10.0 ** every.index
+    out["psum"] = (x.numpy(), compressed_psum(x.to(device), every).cpu()
+                   .numpy())
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(LOOKUP_ROWS, LOOKUP_DIM, generator=gen)
+    lids = torch.randint(0, LOOKUP_ROWS, (batch, 8), generator=gen)
+    got = make_sharded_lookup(mesh)(table.to(device), lids.to(device))
+    out["lookup_equal"] = bool(torch.equal(got.cpu(), table[lids]))
+    return out
+
+
+def shard_ranks_phase(tmp, queries, gt, merged, device, *, k=K, eps=EPS,
+                      batch=BATCH, rank_fn=None) -> dict:
+    """11c: four gloo ranks on one device (the debug mesh), each running
+    ``rank_fn`` (``shard_rank``); every rank's output held equal to every
+    other's and checked as the module docstring says.  Returns the
+    measurements and the ranks' launches by kernel."""
+    from repro_torch.configs.deg import QUANT_PRESETS
+    from repro_torch.core.distances import exact_knn_batched
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.launch.ranks import spawn_ranks
+
+    pq = QUANT_PRESETS["pq-compact"]
+    cfg = dict(device=str(device), mesh=MESH, k=k, eps=eps, batch=batch,
+               sq8_rerank=QUANT_PRESETS["sq8-serving"].rerank_k,
+               pq_rerank=pq.rerank_k, pq_eps=pq.eps,
+               n_exclude=N_EXPLORE_EXCLUDE)
+    world = math.prod(MESH)
+    t0 = time.perf_counter()
+    res = spawn_ranks(rank_fn or shard_rank, world, (tmp, cfg),
+                      backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    res.sort(key=lambda r: r["index"])
+    r0 = res[0]
+    log(f"phase11c {world} ranks (gloo, mesh {MESH} on {device}) in "
+        f"{secs:.1f} s (timeout {RANK_TIMEOUT_S} s); groups "
+        f"{r0['backends']}")
+    if set(r0["backends"].values()) != {"gloo"}:
+        raise AssertionError(f"phase11c: groups {r0['backends']}, want "
+                             "gloo")
+    tags = ("float32", "float32_drop", "sq8", "sq8_restored", "pq",
+            "explore")
+    for r in res[1:]:
+        for tag in tags + ("brute",):
+            for a, b in zip(r[tag], r0[tag]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"phase11c: rank {r['index']}'s "
+                                         f"{tag} differs from rank 0's")
+        if not np.array_equal(r["psum"][1], r0["psum"][1]):
+            raise AssertionError("phase11c: compressed_psum differs between "
+                                 "ranks")
+    launches = {}
+    for r in res:
+        for tag in tags:
+            got, calls = r["launches"][tag], r["calls"][tag]
+            expect_launches("beam_search", got["beam_search"], calls,
+                            f"local searches (rank {r['index']} {tag})")
+            for name in HOP_KERNELS:
+                expect_launches(name, got[name], 0,
+                                f"rank {r['index']} {tag}")
+            for name, v in got.items():
+                launches[name] = launches.get(name, 0) + v
+        sm = "; ".join(f"{tag} " + ", ".join(
+            f"{s} {v:.3f}" for s, v in r["stage_ms"][tag].items())
+            for tag in tags)
+        log(f"  rank {r['index']}: ms a batch: {sm}")
+    ids, dists = r0["float32"]
+    want_ids, want_d = (t.cpu().numpy() for t in merged)
+    if not (np.array_equal(ids, want_ids) and np.array_equal(dists, want_d)):
+        raise AssertionError("phase11c: the float32 sharded search differs "
+                             "from each shard's range_search + the stable "
+                             "merge")
+    rec = recall_at_k(ids, gt)
+    log(f"phase11c float32: ids and dists equal to the composed search; "
+        f"recall@{k} {rec:.4f}; {r0['calls']['float32']} batches in "
+        f"{r0['wall_s']['float32']:.3f} s on rank 0")
+    if rec < RECALL_FLOOR:
+        raise AssertionError(f"phase11c recall@{k} {rec:.4f} < "
+                             f"{RECALL_FLOOR}")
+    data = _shards_file(tmp)
+    base = data["base"]
+    n_pq = int(data["stacked"]["pq"]["n"].sum())
+    _, gt_pq = exact_knn_batched(queries, base[:n_pq], k, device=device)
+    for tag in ("sq8", "sq8_restored", "pq"):
+        ids, dists = r0[tag]
+        ok = ids != INVALID
+        exact = np.linalg.norm(queries[np.nonzero(ok)[0]] - base[ids[ok]],
+                               axis=1)
+        np.testing.assert_allclose(dists[ok], exact, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"phase11c {tag} rerank")
+        rec_q = recall_at_k(ids, gt_pq if tag == "pq" else gt)
+        log(f"phase11c {tag}: every returned dist the exact float distance "
+            f"(rtol 1e-5), recall@{k} {rec_q:.4f}"
+            + (f" against the exact k-NN of its {n_pq} rows"
+               if tag == "pq" else ""))
+    for name in ("ids", "dists"):
+        i = ("ids", "dists").index(name)
+        if not np.array_equal(r0["sq8_restored"][i], r0["sq8"][i]):
+            raise AssertionError(f"phase11d: the restored sq8 index's {name} "
+                                 "differ from the live one's on the ranks")
+    drop = r0["float32_drop"][0]
+    if not (drop % 2 == 1).all():
+        raise AssertionError("phase11c: drop_shard(0) returned an even id")
+    ex = r0["explore_exclude"]
+    e_ids = r0["explore"][0]
+    hit = (e_ids[:, :, None] == ex[:, None, :]) & (e_ids[:, :, None]
+                                                   != INVALID)
+    if hit.any() or (e_ids == INVALID).any():
+        raise AssertionError("phase11c: an exploration lane returned an "
+                             "excluded id or fewer than k")
+    vals, bids, n_db = r0["brute"]
+    brute_s = r0["wall_s"]["brute"]
+    d_ref, i_ref = exact_knn_batched(queries, base[:n_db], k, device=device)
+    same = float((bids == i_ref).mean())
+    diff = bids != i_ref
+    ties = np.isclose(np.sqrt(np.maximum(vals[diff], 0)), d_ref[diff],
+                      rtol=GT_RTOL, atol=0.0)
+    log(f"phase11c sharded_brute_topk (l2, over data x model, {n_db} rows): "
+        f"{brute_s:.3f} s on rank 0; ids equal to exact_knn_batched on "
+        f"{same:.4%}, {int(diff.sum())} differing slots, {int(ties.sum())} "
+        "ties")
+    if same < GT_AGREE or not ties.all():
+        raise AssertionError("phase11c: sharded_brute_topk disagrees with "
+                             "the exact k-NN")
+    xs = np.stack([r["psum"][0] for r in res])
+    err = np.abs(r0["psum"][1] - xs.sum(0)).max()
+    bound = world * np.abs(xs).max() / 127
+    log(f"phase11c compressed_psum bit-identical on {world} ranks, max "
+        f"error {err:.4g} <= {bound:.4g}; sharded lookup equal to the "
+        f"gather: {all(r['lookup_equal'] for r in res)}")
+    if err > bound + 1e-6 or not all(r["lookup_equal"] for r in res):
+        raise AssertionError("phase11c: compressed_psum or the sharded "
+                             "lookup is wrong")
+    log(f"phase11c beam_search launches over the ranks: "
+        f"{launches.get('beam_search', 0)}")
+    return {"secs": secs, "recall": rec, "launches": launches,
+            "stage_ms": r0["stage_ms"]}
+
+
+def _shards_file(tmp) -> dict:
+    import torch
+
+    return torch.load(os.path.join(tmp, "shards.pt"), weights_only=False)
+
+
+def sharded_phase(base, queries, gt, device, count=None, *, k=K, eps=EPS,
+                  batch=BATCH, n_host=N_HOST, rank_fn=None) -> dict:
+    """Phase 11 (11a, 11b and 11d at world size 1, then 11c's ranks) in a
+    temporary directory (removed after).  Returns the measurements; the
+    ranks' launches, by kernel, under "launches"."""
+    import tempfile
+
+    count = count or _no_count
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        out = world1_phase(base, queries, gt, device, count, tmp, k=k,
+                           eps=eps, batch=batch, n_host=n_host)
+        out["ranks"] = shard_ranks_phase(tmp, queries, gt, out.pop("merged"),
+                                         device, k=k, eps=eps, batch=batch,
+                                         rank_fn=rank_fn)
+    out["launches"] = out["ranks"]["launches"]
+    log(f"phase11 total {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: recsys serving (DIN and DCN-v2) and the bag_lookup kernel
 # ---------------------------------------------------------------------------
 def peak_memory(reset: bool = False) -> int | None:
@@ -3450,6 +4009,11 @@ def main(argv=None) -> int:
     persist_serve_phase(idx, base, queries, served, quant_served, device,
                         count)
     stamp("phases 9 and 10")
+    # the graph of phase 3 and the ground truth of phase 4 still hold
+    sharded = sharded_phase(base, queries, served["gt"], device, count)
+    for name, n in sharded["launches"].items():
+        launches[name] += n
+    stamp("phase 11")
     baselines_phase(base, queries, device, count)
     stamp("phase 4c")
     refine_phase(idx, queries, served["gt"], device, count)

@@ -33,6 +33,10 @@ class Metric:
         """delta(x, y) for x: (..., m), y: (..., m) broadcast together."""
         return self._pair(x, y)
 
+    def one_to_many(self, q: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+        """delta(q, xs[i]): q (m,), xs (n, m) -> (n,)."""
+        return self._pair(q[None, :], xs)
+
     def cross(self, qs: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
         """Full distance matrix: qs (b, m), xs (n, m) -> (b, n), in the
         expanded matrix-product form ``|q|^2 - 2 q.x + |x|^2``."""

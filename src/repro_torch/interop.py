@@ -4,11 +4,13 @@
 ``DEGIndex``'s state (adjacency, weights, n, vectors, params) into the
 port's, so both packages search the same graph; :func:`store_from_numpy`
 does the same for a compressed store's codes, so both search the same
-codes whatever their encoders do; :func:`recsys_model_from_numpy` turns a
-recsys parameter dict into a ``RecsysModel`` with the same weights.  The
-``*_to_numpy``
-functions bring the port's tensors back, so tests compare with
-``np.testing`` and never tensor against array.  Nothing here imports JAX.
+codes whatever their encoders do; :func:`sharded_from_numpy` turns a
+``ShardedDEG``'s stacked arrays and per-shard indexes into the port's, so
+both packages search the same sub-DEGs; :func:`recsys_model_from_numpy`
+turns a recsys parameter dict into a ``RecsysModel`` with the same
+weights.  The ``*_to_numpy`` functions bring the port's tensors back, so
+tests compare with ``np.testing`` and never tensor against array.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core.beam import BeamState
 from repro_torch.core.build import DEGIndex, DEGParams
 from repro_torch.core.graph import DEGraph, GraphBuilder
 from repro_torch.core.search import SearchResult
+from repro_torch.distributed.index import ShardedDEG
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.quant.store import VectorStore
 
@@ -78,6 +81,42 @@ def store_from_numpy(data, scale, codec: str, codebooks=None,
         scale=t(np.asarray(scale, np.float32)) if codec == "sq8" else None,
         codebooks=(None if codebooks is None
                    else t(np.asarray(codebooks, np.float32))))
+
+
+def sharded_from_numpy(adjacency, vectors, n, seeds, params: dict,
+                       shards=(), *, codec: str = "float32", codes=None,
+                       scales=None, codebooks=None,
+                       device="cuda") -> ShardedDEG:
+    """A port ``ShardedDEG`` from a JAX one's stacked arrays and codec
+    state, with ``shards`` its sub-DEGs as dicts of ``vectors``,
+    ``adjacency``, ``weights`` and ``n`` (a JAX ``DEGIndex``'s
+    ``vectors``, ``builder.adjacency``, ``builder.weights`` and ``n``).
+    No shards gives a ``ShardedDEG`` that only searches."""
+    def t(x, dtype=None):
+        return None if x is None else torch.tensor(
+            np.asarray(x, dtype), device=device)
+
+    return ShardedDEG(
+        shards=[index_from_numpy(params=params, device=device, **sh)
+                for sh in shards],
+        adjacency=t(adjacency, np.int32), vectors=t(vectors, np.float32),
+        n=t(n, np.int32), seeds=t(seeds, np.int32),
+        params=params_from_dict(params), codec=codec, codes=t(codes),
+        scales=t(scales, np.float32), codebooks=t(codebooks, np.float32))
+
+
+def sharded_to_numpy(sd: ShardedDEG) -> dict:
+    """The stacked arrays, codec state and params (a dict) of a port
+    ``ShardedDEG`` (``scales`` ones beside fp16 and pq, as the JAX
+    package keeps them): ``sharded_from_numpy(**d)`` gives back a
+    ``ShardedDEG`` that searches alike."""
+    out = {name: getattr(sd, name) for name in (
+        "adjacency", "vectors", "n", "seeds", "codes", "scales",
+        "codebooks")}
+    out = {k: None if v is None else v.cpu().numpy() for k, v in out.items()}
+    out["codec"] = sd.codec
+    out["params"] = dataclasses.asdict(sd.params)
+    return out
 
 
 def recsys_model_from_numpy(params: dict, cfg: RecsysConfig,

@@ -11,8 +11,11 @@
   ``segment_max``).  A segment id outside [0, num_bags) raises here where
   ``jax.ops.segment_sum`` drops it.
 
-``sharded_embedding_lookup`` (the row-sharded lookup) waits for the
-sharding slice.
+``sharded_embedding_lookup`` is the row-sharded lookup on one rank:
+each rank holds a contiguous row range of the stacked table, resolves the
+ids that fall in it, and the partial results are summed over the ranks
+that share the table (``distributed/collectives.py::make_sharded_lookup``
+builds it over a mesh).
 """
 from __future__ import annotations
 
@@ -71,6 +74,24 @@ def embedding_bag_max(table: torch.Tensor, flat_ids: torch.Tensor,
                      dtype=rows.dtype, device=table.device)
     return out.scatter_reduce_(0, seg, rows, reduce="amax",
                                include_self=True)
+
+
+def sharded_embedding_lookup(local_table: torch.Tensor, ids: torch.Tensor,
+                             row_offset: int, group) -> torch.Tensor:
+    """Row-sharded lookup on one rank.
+
+    local_table (V_local, E): this rank's row range [row_offset,
+    row_offset + V_local); ids (B, F) are *global* row indices.  Returns
+    the full (B, F, E) gather, summed over ``group`` (an
+    ``launch.mesh.AxisGroup``)."""
+    from repro_torch.distributed.collectives import all_reduce
+
+    v_local = local_table.shape[0]
+    local = ids.to(torch.int64) - row_offset
+    valid = (local >= 0) & (local < v_local)
+    rows = local_table[local.clamp(0, v_local - 1)]           # (B, F, E)
+    rows = torch.where(valid[..., None], rows, 0.0)
+    return all_reduce(rows, group, torch.distributed.ReduceOp.SUM)
 
 
 def stack_vocab_offsets(vocab_sizes: Sequence[int]

@@ -6,6 +6,9 @@ crash-safe mutation journal between checkpoints.
 * :mod:`repro_torch.persist.snapshot` — one :class:`DEGIndex`: graph +
   vectors + materialized compressed stores + params + RNG/build counters
   + medoid cache, plus the mid-build checkpoint contract;
+* :mod:`repro_torch.persist.sharded` — a ``ShardedDEG``: every sub-DEG's
+  sections behind one manifest, restored exactly or onto another shard
+  count;
 * :mod:`repro_torch.persist.wal` — CRC-framed append-only records,
   torn-tail truncation on read, ``recover(snapshot, wal)`` = bit-identical
   resume.
@@ -16,6 +19,7 @@ package writes loads into the other.  ``DEGIndex.save/load`` and
 """
 from .format import (FORMAT_VERSION, SUPPORTED_VERSIONS, SnapshotChecksumError,
                      SnapshotFormatError, read_snapshot, write_snapshot)
+from .sharded import load_sharded, save_sharded
 from .snapshot import load_index, save_index
 from .wal import (WALCorruptionError, WALError, WALRecord, WALWriter,
                   read_wal, recover, replay_wal)
@@ -24,7 +28,7 @@ __all__ = [
     "FORMAT_VERSION", "SUPPORTED_VERSIONS",
     "SnapshotFormatError", "SnapshotChecksumError",
     "read_snapshot", "write_snapshot",
-    "save_index", "load_index",
+    "save_index", "load_index", "save_sharded", "load_sharded",
     "WALError", "WALCorruptionError", "WALRecord", "WALWriter",
     "read_wal", "replay_wal", "recover",
 ]

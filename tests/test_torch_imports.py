@@ -65,6 +65,34 @@ def test_live_mutation_module_imports_alone(probe, name):
         f"{full} loaded {probe['loaded'][full]}"
 
 
+_SHARDING_MODULES = ("distributed.collectives", "distributed.index",
+                      "launch.mesh", "launch.ranks", "persist.sharded",
+                      "core.metrics", "models.embedding_bag")
+
+
+@pytest.mark.parametrize("name", _SHARDING_MODULES)
+def test_sharding_module_imports_alone(probe, name):
+    """Each module of the sharded path is among the probe's imports and
+    loaded no JAX and nothing of the JAX package."""
+    full = "repro_torch." + name
+    assert full in probe["names"]
+    assert probe["loaded"][full] == [], \
+        f"{full} loaded {probe['loaded'][full]}"
+
+
+def test_dist_test_helper_loads_no_jax():
+    """The torch side of ``tests/_torch_dist.py`` (its rank functions run
+    in every spawned rank) loads no JAX: only its JAX subprocess does."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, _torch_dist; print(json.dumps(sorted(m for m "
+            "in sys.modules if m == 'jax' or m.startswith(('jax.', "
+            "'jaxlib')) or m == 'repro' or m.startswith('repro.'))))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_SRC, tests]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120, check=True).stdout
+    assert json.loads(out) == []
+
+
 def test_chip_smoke_imports_no_jax():
     root = os.path.dirname(_SRC)
     with open(os.path.join(root, "chip_smoke.py")) as f:
