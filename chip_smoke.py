@@ -13,7 +13,8 @@ and snapshot the shards, build and serve the paper's baseline graphs,
 refine
 the index, delete vertices from it, and serve again; then serve the
 recsys models DIN and DCN-v2 at their published widths, their embedding
-bags through the bag_lookup kernel.
+bags through the bag_lookup kernel, and train both at the train_batch
+cell's width, DIN's bag gradient through the bag_lookup_bwd kernel.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -217,7 +218,40 @@ Phases (any failure raises and exits non-zero):
      no excluded id returned; the brute-force ids against
      exact_knn_batched under GT_AGREE / GT_RTOL; compressed_psum
      bit-identical on every rank and within its bound; every group gloo;
-  12. the kernels' JSON line, then the final JSON line.
+  12. (right after phase 8, so that a fault shows early; the card's memory
+     freed after it) recsys training at the train_batch cell: DIN and
+     DCN-v2 at their published widths, seeded weights (init_params, a
+     torch.Generator seeded 0), the MLPerf split (SGD 0.05 on the tables,
+     AdamW 1e-3 on the towers), batches of 65,536 from
+     CriteoLikeStream(seed=0), each made once on the host (s a batch);
+     12a. bag_lookup_bwd at DIN's train_batch shape (step 0's Zipf history
+     ids with their -1 tails over DIN's table, weights in [0, 1), a normal
+     dL/dout) against its plain version (grad_w at rtol 1e-5 atol 1e-6;
+     grad_table there plus 1e-6 times each entry's sum of |w| |g|, since
+     the Zipf head sums some 800,000 float32 terms, in another order in
+     each version), a second launch torch.equal to the first; times of the
+     kernel with its sort, of its kernels alone on sorted keys, of the
+     sort, of the plain version and of F.embedding_bag's forward plus
+     backward; the bound by analysis/roofline.py::bag_lookup_bwd_costs;
+     12b. TRAIN_STEPS steps of each model: the loss curve, every loss
+     finite, ms a step between CUDA events and samples/s, the host batch
+     time beside it, peak bytes, the idle share of one step (on a copy),
+     the model flops over the float32 peak; one bag_lookup and one
+     bag_lookup_bwd launch a DIN step and none a DCN-v2 step; each of the
+     first TRAIN_PLAIN_STEPS steps again through the plain versions from
+     the kernel run's parameters and state before it: losses at rtol
+     1e-5, parameters after it at rtol 1e-4 atol 1e-6 (two chains of
+     steps part: AdamW divides a gradient near its eps by its own size);
+     12c. DIN through train_loop with a checkpoint every
+     TRAIN_CKPT_EVERY steps and a failure injected after step
+     TRAIN_FAIL_AT; the rerun resumes from the step-5 checkpoint, and its
+     final parameters and optimizer state are torch.equal to 12b's
+     uninterrupted run; DCN-v2's whole train state saved and restored
+     (seconds, bytes, every leaf torch.equal);
+     12d. python -m repro_torch.launch.train --arch din --steps 60
+     --batch 256 --fail-at 30 as a subprocess exits non-zero; its rerun
+     resumes and prints a final loss below its first;
+  13. the kernels' JSON line, then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
@@ -228,8 +262,8 @@ their recovery), phase 10's (the epoch's serving and the mutations under
 it, the scrub pass, the async engines' flushes, the writer and the
 engines of 10d together, build_index), phase 11's (the sharded builds,
 the world-1 and composed searches, the reshard and the restored copy's
-search; the ranks' searches, counted in each rank and added) and the
-recsys serving only;
+search; the ranks' searches, counted in each rank and added), the
+recsys serving and the recsys training steps (12b's and 12c's) only;
 warm-ups, profiled reruns and the runs of the plain versions are not
 counted.  Each counted piece that searches is held to one beam_search
 launch for each of its range_search calls where the search kernel takes
@@ -257,6 +291,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -267,8 +302,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 INVALID = -1
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+# the H100 SXM's HBM3 rate and float32 peak outside the tensor cores
+# (vendor figures), from the port's one roofline module
+from repro_torch.analysis.roofline import (FP32_OPS_PER_S,  # noqa: E402
+                                           HBM_BYTES_PER_S)
 TIMING_REPS = 50
 PROFILE_TRIES = 3
 GRAPH_REPLAYS = 3                  # timed replays of a kernel row's graph
@@ -310,6 +347,15 @@ RETRIEVAL_K = 100
 RETRIEVAL_REPS = 20                # retrievals timed with and without the id check
 DCN_CANDIDATE_FIELD = 2            # Criteo-Kaggle field 2: 10.1M rows
 BAG_RTOL, BAG_ATOL = 1e-5, 1e-6    # kernel vs plain: bag sums and logits
+# phase 12: recsys training at the train_batch cell (batches of 65,536),
+# the MLPerf split, seeded weights, CriteoLikeStream(seed=0)
+TRAIN_STEPS = 12
+TRAIN_PLAIN_STEPS = 3              # 12b: steps run again through the plain versions
+TRAIN_PARAM_RTOL = 1e-4            # 12b: parameters after each, kernels vs plain
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 7   # 12c: checkpoints at 0 and 5
+# 12d: launch.train on the reduced DIN; at its default batch of 16 one
+# batch's BCE noise is larger than what the steps learn
+LAUNCH_TRAIN = dict(steps=60, fail_at=30, batch=256)
 
 KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
@@ -320,6 +366,9 @@ KERNELS = {
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
     "l2_topk": "src/repro/kernels/l2_topk/l2_topk.py:93",
     "bag_lookup": "src/repro/kernels/bag_lookup/bag_lookup.py:38",
+    # the gradient of DIN's pooling sum, which JAX takes with its autodiff
+    # and the port with the bag_lookup kernel
+    "bag_lookup_bwd": "src/repro/models/recsys.py:220",
     # the whole search folds beam_merge, gather_dist, gather_dist_q, pq_adc
     # and fused_hop into one launch
     "beam_search": "src/repro/kernels/beam_merge/beam_merge.py:189, "
@@ -1364,7 +1413,8 @@ def launch_counters() -> dict:
             "gather_dist_q": (gdq_ops, "launches"),
             "pq_adc": (adc_ops, "launches"),
             "l2_topk": (l2_ops, "launches"),
-            "bag_lookup": (bag_ops, "launches")}
+            "bag_lookup": (bag_ops, "launches"),
+            "bag_lookup_bwd": (bag_ops, "launches_bwd")}
 
 
 def counted(ops: dict, total: dict, fn, *args, **kwargs):
@@ -1578,7 +1628,8 @@ def plain_kernels():
              ((bs, "beam_search"), (bm, "beam_merge"), (fh, "fused_hop"),
               (gd, "gather_dist"), (es, "extend_select"),
               (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
-              (adc, "pq_adc"), (l2, "l2_topk"), (bag, "bag_lookup"))]
+              (adc, "pq_adc"), (l2, "l2_topk"), (bag, "bag_lookup"),
+              (bag, "bag_lookup_bwd"))]
     try:
         for m, name, fn in saved:
             setattr(m, name, functools.partial(fn, impl="ref"))
@@ -3935,6 +3986,506 @@ def recsys_phase(rec: dict, device, count=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: recsys training (DIN and DCN-v2) and the bag_lookup_bwd kernel
+# ---------------------------------------------------------------------------
+def _event_timed(fn, *args):
+    """(result, ms between CUDA events recorded around ``fn``): the stream's
+    time for the call, gaps where the card waits on the host included."""
+    import torch
+
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn(*args)
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def _clone_tree(tree, device=None):
+    from repro_torch.train import tree as T
+
+    return T.tree_map(
+        lambda t: t.detach().to(device or t.device, copy=True), tree)
+
+
+def train_setup(device, *, reduced=False, batch=None,
+                steps=TRAIN_STEPS) -> dict:
+    """Per model of RECSYS_ARCHS: the train_batch cell's trainer
+    (``launch.train.train_batch_trainer``: the published config or
+    ``reduced()``, seeded weights, the MLPerf split, batches of 65,536 or
+    ``batch`` from CriteoLikeStream(seed=0)), a copy of its initial
+    parameters and optimizer state, and its first ``steps`` batches made
+    once (host seconds each)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_batch_trainer
+
+    out = {}
+    for name in RECSYS_ARCHS:
+        spec = get_arch(name)
+        cfg = spec.reduced() if reduced else spec.model
+        B = batch or spec.cell("train_batch")["batch"]
+        t0 = time.perf_counter()
+        step, params, state, batch_fn = train_batch_trainer(
+            name, device, seed=0, batch=B, cfg=cfg)
+        sync()
+        init_s = time.perf_counter() - t0
+        init = (_clone_tree(params), _clone_tree(state))
+        for s in range(steps):
+            batch_fn(s)
+        host = [batch_fn.host_s[s] for s in range(steps)]
+        log(f"phase12 {name}: B={B}, {cfg.total_rows:,} table rows x "
+            f"{cfg.embed_dim}, trainer built in {init_s:.3f} s; {steps} "
+            f"batches made on the host, median {np.median(host):.4f} s a "
+            f"batch (max {max(host):.4f} s)")
+        out[name] = dict(cfg=cfg, B=B, step=step, params=params, state=state,
+                         batch_fn=batch_fn, init=init, host_s=host)
+    return out
+
+
+def _close_sums(what: str, got, want, mag=None) -> None:
+    """``got`` against ``want`` at BAG_RTOL / BAG_ATOL, plus BAG_ATOL times
+    ``mag`` (the sum of the magnitudes each entry adds) where given."""
+    import torch
+
+    bound = BAG_RTOL * want.abs() + BAG_ATOL
+    if mag is not None:
+        bound = bound + BAG_ATOL * mag
+    off = (got - want).abs() > bound
+    if bool(off.any()):
+        raise AssertionError(
+            f"{what}: {int(off.sum())} of {off.numel()} entries off, the "
+            f"worst by {float(((got - want).abs() - bound).max()):.3g} past "
+            f"its bound; largest difference "
+            f"{float((got - want).abs().max()):.3g}")
+
+
+def check_bag_lookup_bwd(table, ids, weights, g, shape: str) -> dict:
+    """The backward kernel against its plain version (grad_w at BAG_RTOL /
+    BAG_ATOL; grad_table there plus BAG_ATOL times each entry's sum of
+    |w| |g|, ``_close_sums``), a second launch bit-identical to the first, and times: the kernel with its sort (``t``), the kernels
+    alone on sorted keys (``t_kernels``), the sort alone (``t_sort``), the
+    plain version, and F.embedding_bag's forward plus backward as the
+    library call.  The bound counts what
+    ``analysis/roofline.py::bag_lookup_bwd_costs`` counts."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.analysis.roofline import bag_lookup_bwd_costs
+    from repro_torch.kernels.bag_lookup import ops
+
+    V, E = table.shape
+    B, nf = ids.shape
+    valid = ids >= 0
+    safe = ids.clamp(0, V - 1)
+    w = torch.ones_like(ids, dtype=torch.float32) if weights is None \
+        else weights
+    w = torch.where(valid, w, 0.0)
+    # sum |w| |g| an entry of grad_table: a row named 800,000 times (DIN's
+    # Zipf head) sums that many float32 terms, in another order in each
+    # version (the plain one by atomics), and keeps the rounding of its
+    # terms' scale
+    mag = torch.zeros((V, E), dtype=torch.float32, device=table.device)
+    mag.index_add_(0, safe.reshape(-1).long(),
+                   (w.abs()[..., None] * g.abs()[:, None, :]).reshape(-1, E))
+    got = ops.bag_lookup_bwd(table, ids, weights, g)
+    want = ops.bag_lookup_bwd(table, ids, weights, g, impl="ref")
+    _close_sums("grad_w", got[0], want[0])
+    _close_sums("grad_table", got[1], want[1], mag)
+    again = ops.bag_lookup_bwd(table, ids, weights, g)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("bag_lookup_bwd: a second launch on the same "
+                             "inputs gave other bits")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    lt = table.detach().clone().requires_grad_()
+    lw = w.detach().clone().requires_grad_()
+
+    def library():
+        out = F.embedding_bag(safe, lt, mode="sum", per_sample_weights=lw)
+        return torch.autograd.grad(out, (lt, lw), g)
+
+    lib_t, lib_w = library()
+    _close_sums("F.embedding_bag grad_table", lib_t, want[1], mag)
+    _close_sums("F.embedding_bag grad_w", torch.where(valid, lib_w, 0.0),
+                want[0])
+    order = ops.bwd_order(ids, V)
+    t = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g),
+                  "bag_bwd_")
+    t_kernels = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g,
+                                                     order=order))
+    t_sort = time_call(lambda: ops.bwd_order(ids, V))
+    tp = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g,
+                                              impl="ref"))
+    tl = time_call(library)
+    n_valid = int(valid.sum())
+    rows = torch.unique(safe[valid]).numel()
+    c = bag_lookup_bwd_costs(B, nf, E, V, n_valid, rows,
+                             weighted=weights is not None)
+    bms, by = bound_ms(c["hbm_bytes"], c["flops"])
+    head = int(torch.bincount(safe[valid].long()).max()) if n_valid else 0
+    return dict(name="bag_lookup_bwd", max_abs_err=err, t=t, tp=tp, tl=tl,
+                t_kernels=t_kernels, t_sort=t_sort, bound_ms=bms,
+                bound_by=by,
+                shape=f"{shape}: B={B} F={nf} E={E} V={V}, {n_valid} valid "
+                      f"ids, {rows} rows, {head} on the most named row",
+                tol=f"rtol {BAG_RTOL:g} atol {BAG_ATOL:g}, grad_table plus "
+                    f"{BAG_ATOL:g} x sum |w| |g|; a second launch "
+                    "torch.equal")
+
+
+def bag_bwd_check(tr: dict, device, seed=0) -> dict:
+    """bag_lookup_bwd at the shape DIN's train step gives it: the
+    train_batch cell's history ids of step 0 (Zipf-skewed, -1 tails) over
+    DIN's table, weights in [0, 1) and a normal dL/dout."""
+    import torch
+    from repro_torch.models import recsys as R
+
+    din = tr["din"]
+    ids = R.history_ids(din["cfg"], din["batch_fn"](0)["hist"])
+    rng = np.random.default_rng(seed)
+    B, nf = ids.shape
+    weights = torch.tensor(rng.random((B, nf), dtype=np.float32),
+                           device=device)
+    g = torch.tensor(rng.normal(size=(B, din["cfg"].embed_dim))
+                     .astype(np.float32), device=device)
+    r = check_bag_lookup_bwd(din["params"]["table"].detach(), ids, weights,
+                             g, "DIN interest train_batch")
+    log(f"phase12a bag_lookup_bwd [{r['shape']}] ok ({r['tol']}): "
+        + timings(r, "F.embedding_bag fwd+bwd")
+        + f"; without the sort {r['t_kernels']['device_ms']:.6f} ms, the "
+        f"sort alone {r['t_sort']['device_ms']:.6f} ms "
+        f"({r['t_kernels']['timed_by']})")
+    return r
+
+
+def _leaf_diffs(got, want):
+    """(path, largest absolute difference, torch.equal) for every leaf of
+    ``got`` against ``want``."""
+    import torch
+    from repro_torch.train import tree as T
+
+    out = []
+    for path, a in T.leaves_with_path(got):
+        a, b = a.detach(), T.get(want, path).detach()
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        out.append((path, d, bool(torch.equal(a, b))))
+    return out
+
+
+def _worst(diffs) -> str:
+    """The largest difference of ``_leaf_diffs`` and the leaf it is in."""
+    d, path = max(((d, p) for p, d, _ in diffs), default=(0.0, None),
+                  key=lambda x: x[0])
+    return f"{d:.3g} in {path}" if d else "0"
+
+
+def _compare_params(what: str, got, want, *, rtol, atol) -> None:
+    """Every leaf of ``got`` against ``want`` at rtol / atol.  Logs the
+    worst leaf and raises listing every leaf off."""
+    import torch
+    from repro_torch.train import tree as T
+
+    diffs = _leaf_diffs(got, want)
+    bad = [f"{path}: max diff {d:.3g}" for path, d, _ in diffs
+           if not torch.allclose(T.get(got, path).detach(),
+                                 T.get(want, path).detach(),
+                                 rtol=rtol, atol=atol)]
+    log(f"  {what}: largest difference {_worst(diffs)}")
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+
+
+def chain_readings(name: str, r: dict, kept, steps: int) -> dict:
+    """Phase 12b's reading of where chains of train steps part.  From the
+    model's initial copy, ``steps`` steps again with the kernels, which
+    must be torch.equal to ``kept`` (the kernel run's parameters and state
+    after as many steps, held on the host); then twice through the plain
+    versions.  Logs and returns the largest difference of the plain chains
+    against each other and of one of them against the kernel chain: if
+    the plain versions add in a new order each run, their own two chains
+    part as far as they part from the kernels."""
+    from repro_torch.train import tree as T
+
+    kept = T.tree_map(lambda t: t.to(r["init"][0]["table"].device), kept)
+
+    def chain(plain: bool):
+        p, s = _clone_tree(r["init"][0]), _clone_tree(r["init"][1])
+        with plain_kernels() if plain else contextlib.nullcontext():
+            for i in range(steps):
+                (p, s), _ = r["step"](p, s, r["batch_fn"](i))
+        sync()
+        return {"params": p, "opt": s}
+
+    off = [(p, d) for p, d, eq in _leaf_diffs(chain(False), kept) if not eq]
+    if off:
+        raise AssertionError(f"phase12b {name}: a second kernel chain of "
+                             f"{steps} steps differs from the first: {off}")
+    a = chain(True)
+    plain_plain = _leaf_diffs(a, chain(True))
+    plain_kernel = _leaf_diffs(a, kept)
+    log(f"phase12b {name} chains of {steps} steps from the initial weights: "
+        f"kernels twice torch.equal; plain twice, largest difference "
+        f"{_worst(plain_plain)}; plain vs kernels {_worst(plain_kernel)}")
+    return {k: max((d for _, d, _ in v), default=0.0) for k, v in
+            (("plain_plain", plain_plain), ("plain_kernel", plain_kernel))}
+
+
+def _plain_step(what: str, step, before, batch, loss: float, after) -> None:
+    """One train step through the plain versions from ``before`` (the
+    kernel run's parameters and state ahead of its step on ``batch``): the
+    loss within BAG_RTOL / BAG_ATOL of the kernel step's ``loss``, the
+    parameters after it at TRAIN_PARAM_RTOL / BAG_ATOL of ``after``."""
+    p0, s0 = before
+    with plain_kernels():
+        (p0, s0), m = step(p0, s0, batch)
+    pl = float(m["loss"])
+    if not math.isclose(pl, loss, rel_tol=BAG_RTOL, abs_tol=BAG_ATOL):
+        raise AssertionError(f"{what}: loss {loss} with the kernels, {pl} "
+                             "plain")
+    _compare_params(f"{what} params, kernels vs plain", after, p0,
+                    rtol=TRAIN_PARAM_RTOL, atol=BAG_ATOL)
+
+
+def train_phase(tr: dict, device, count=None, *, steps=TRAIN_STEPS,
+                plain_steps=TRAIN_PLAIN_STEPS) -> dict:
+    """Phase 12b: each model's first ``steps`` train steps from its seeded
+    weights (ms a step between CUDA events, samples/s, the host's batch
+    time beside, peak bytes of one step past the comparisons, the idle
+    share of one step on a copy, the model flops over the card's float32
+    peak), one bag_lookup and one bag_lookup_bwd launch a DIN step and
+    none a DCN-v2 step, every loss finite.  Each of the first
+    ``plain_steps`` steps runs again through the plain versions from the
+    kernel run's parameters and state before it (``_plain_step``): two
+    chains of steps may part, and ``chain_readings`` measures how far
+    once every model has run its steps.  Returns each model's final parameters and state (the 12-step run 12c
+    resumes against)."""
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels.bag_lookup import ops as bag_ops
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    peak_step = min(plain_steps, steps - 1)
+    out, keeps = {}, {}
+    for name in RECSYS_ARCHS:
+        r = tr[name]
+        step, batch_fn, cfg, B = r["step"], r["batch_fn"], r["cfg"], r["B"]
+        params, state = r["params"], r["state"]
+        want = int(name == "din")
+        losses, ms, walls, peak = [], [], [], None
+        for s in range(steps):
+            b = batch_fn(s)
+            before = (_clone_tree(params), _clone_tree(state)) \
+                if s < plain_steps else None
+            if s == peak_step:
+                peak_memory(reset=True)
+            t0 = time.perf_counter()
+            ((params, state), m), dev_ms = _event_timed(
+                count, step, params, state, b)
+            loss = float(m["loss"])
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if s == peak_step:
+                peak = peak_memory()
+            expect_launches("bag_lookup", bag_ops.launches, want,
+                            f"{name} train step")
+            expect_launches("bag_lookup_bwd", bag_ops.launches_bwd, want,
+                            f"{name} train step")
+            if not math.isfinite(loss):
+                raise AssertionError(f"{name} step {s}: loss {loss}")
+            losses.append(loss)
+            ms.append(dev_ms)
+            if before is not None:
+                _plain_step(f"phase12b {name} step {s}", step, before, b,
+                            loss, params)
+                del before
+            if s == plain_steps - 1:
+                # on the host: it takes no room from a peak step's window
+                keeps[name] = {"params": _clone_tree(params, "cpu"),
+                               "opt": _clone_tree(state, "cpu")}
+        steady = ms[1:] or ms
+        med = float(np.median(steady))
+        flops = roofline.recsys_model_flops(cfg, "recsys_train", B)
+        host = float(np.median(r["host_s"]))
+        log(f"phase12b {name}: steps 0-{plain_steps - 1} each again through "
+            f"the plain versions from the same state: losses rtol "
+            f"{BAG_RTOL:g}, params rtol {TRAIN_PARAM_RTOL:g} atol "
+            f"{BAG_ATOL:g}")
+        log(f"phase12b {name} train: losses {[round(x, 6) for x in losses]}")
+        log(f"phase12b {name} train: step 0 {ms[0]:.3f} ms, steps 1-"
+            f"{steps - 1} {_ms_summary(steady)} a step (CUDA events), "
+            f"{B / med * 1e3:,.1f} samples/s; wall {_ms_summary(walls)}; "
+            f"host batch {host:.4f} s, {host * 1e3 / med:.1f} x the device "
+            f"step; peak memory of step {peak_step} "
+            f"{peak if peak is None else f'{peak:,}'} bytes; "
+            f"{flops / 1e9:.1f} GFLOP a step, "
+            f"{flops / roofline.PEAK_FLOPS * 1e3:.3f} ms at the float32 "
+            f"peak ({flops / roofline.PEAK_FLOPS * 1e3 / med:.4f} of it)")
+        p2, s2 = _clone_tree(params), _clone_tree(state)
+        idle_share(lambda: step(p2, s2, batch_fn(0)), med,
+                   f"one {name} train step")
+        del p2, s2
+        out[name] = dict(params=params, state=state, losses=losses, ms=ms,
+                         step_ms=med, samples_s=B / med * 1e3, peak=peak,
+                         host_s=host, flops=flops, chains=None)
+    # after every model's peak step, so no chain's tensors reach its window
+    for name, kept in keeps.items():
+        out[name]["chains"] = chain_readings(name, tr[name], kept,
+                                             plain_steps)
+    return out
+
+
+def loop_phase(tr: dict, trained: dict, tmp, count=None, *,
+               steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+               fail_at=TRAIN_FAIL_AT) -> dict:
+    """Phase 12c: DIN through ``train_loop`` from its initial copy with a
+    checkpoint every ``ckpt_every`` steps and an injected failure after
+    step ``fail_at``; a second loop from a fresh copy resumes from the last
+    checkpoint and runs to ``steps``, and its final parameters and state
+    must be torch.equal to 12b's uninterrupted run.  Then DCN-v2's whole
+    train state after 12b (its 2.16 GB table at full width) saved and
+    restored, torch.equal, with seconds and bytes."""
+    import shutil
+
+    import torch
+    from repro_torch.kernels.bag_lookup import ops as bag_ops
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import tree as T
+    from repro_torch.train.loop import InjectedFailure, LoopConfig, train_loop
+
+    count = count or (lambda fn, *a, **kw: fn(*a, **kw))
+    r = tr["din"]
+    d = os.path.join(tmp, "din")
+    cfg = LoopConfig(total_steps=steps, ckpt_dir=d, ckpt_every=ckpt_every,
+                     log_every=0)
+    p, s = _clone_tree(r["init"][0]), _clone_tree(r["init"][1])
+    t0 = time.perf_counter()
+    try:
+        count(train_loop, r["step"], p, s, r["batch_fn"],
+              dataclasses.replace(cfg, fail_at=fail_at), log=log)
+    except InjectedFailure as exc:
+        log(f"phase12c din: {exc}")
+    else:
+        raise AssertionError("train_loop ran past its injected failure")
+    failed_s = time.perf_counter() - t0
+    for kernel in ("bag_lookup", "bag_lookup_bwd"):
+        expect_launches(kernel, getattr(bag_ops, "launches" if kernel ==
+                                        "bag_lookup" else "launches_bwd"),
+                        fail_at + 1, "din loop steps before the failure")
+    latest = ckpt.latest_step(d)
+    if latest != fail_at // ckpt_every * ckpt_every:
+        raise AssertionError(f"latest checkpoint {latest}")
+    p, s = _clone_tree(r["init"][0]), _clone_tree(r["init"][1])
+    t0 = time.perf_counter()
+    (p, s), hist = count(train_loop, r["step"], p, s, r["batch_fn"], cfg,
+                         log=log)
+    resumed_s = time.perf_counter() - t0
+    for kernel in ("bag_lookup", "bag_lookup_bwd"):
+        expect_launches(kernel, getattr(bag_ops, "launches" if kernel ==
+                                        "bag_lookup" else "launches_bwd"),
+                        steps - latest - 1, "din loop steps after the resume")
+    if [h["step"] for h in hist] != list(range(latest + 1, steps)):
+        raise AssertionError(f"resumed steps {[h['step'] for h in hist]}")
+    ref = trained["din"]
+    diff = []
+    for tag, got, want in (("params", p, ref["params"]),
+                           ("opt", s, ref["state"])):
+        for path, a in T.leaves_with_path(got):
+            b = T.get(want, path)
+            if not torch.equal(a, b):
+                diff.append(((tag,) + path,
+                             float((a.detach() - b.detach()).abs().max())))
+    if diff:
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one: {diff}")
+    log(f"phase12c din train_loop: failure after step {fail_at} "
+        f"({failed_s:.2f} s), resumed from step {latest}, steps "
+        f"{latest + 1}-{steps - 1} in {resumed_s:.2f} s; final parameters "
+        "and optimizer state torch.equal to the uninterrupted run; losses "
+        f"{[round(h['loss'], 6) for h in hist]}")
+    dcn = trained["dcn-v2"]
+    state = {"params": dcn["params"], "opt": dcn["state"]}
+    d2 = os.path.join(tmp, "dcn")
+    t0 = time.perf_counter()
+    path = ckpt.save(d2, steps - 1, state, keep=1)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    t0 = time.perf_counter()
+    back, manifest = ckpt.restore_latest(d2, state)
+    sync()
+    restore_s = time.perf_counter() - t0
+    for (path_, a), (_, b) in zip(T.leaves_with_path(state),
+                                  T.leaves_with_path(back)):
+        if a.dtype != b.dtype or a.device != b.device or \
+                not torch.equal(a, b):
+            raise AssertionError(f"dcn-v2 checkpoint: {path_} differs")
+    del back
+    shutil.rmtree(d2)
+    log(f"phase12c dcn-v2 checkpoint: {len(manifest['leaves'])} leaves, "
+        f"{nbytes:,} bytes saved in {save_s:.2f} s, restored to the card "
+        f"in {restore_s:.2f} s, every leaf torch.equal")
+    return dict(resumed_s=resumed_s, save_s=save_s, restore_s=restore_s,
+                ckpt_bytes=nbytes)
+
+
+def train_launcher_phase(device, tmp, **kw) -> dict:
+    """Phase 12d: ``python -m repro_torch.launch.train --arch din`` (the
+    reduced config, batches of LAUNCH_TRAIN["batch"]) as a subprocess with
+    a checkpoint directory and ``--fail-at``: it must exit non-zero with
+    the injected failure; the rerun must resume from a checkpoint and print
+    a final loss below its first."""
+    a = dict(LAUNCH_TRAIN, **kw)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "din",
+           "--steps", str(a["steps"]), "--batch", str(a["batch"]),
+           "--ckpt-dir", os.path.join(tmp, "launcher"), "--device", device]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    t0 = time.perf_counter()
+    first = subprocess.run(cmd + ["--fail-at", str(a["fail_at"])],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=ROOT, env=env)
+    if first.returncode == 0 or "InjectedFailure" not in first.stderr:
+        raise AssertionError(f"launch.train --fail-at exited "
+                             f"{first.returncode}: {first.stderr[-2000:]}")
+    second = subprocess.run(cmd, capture_output=True, text=True,
+                            timeout=600, cwd=ROOT, env=env)
+    secs = time.perf_counter() - t0
+    lines = second.stdout.splitlines()
+    resumed = [ln for ln in lines if ln.startswith("[loop] resumed from")]
+    final = [ln for ln in lines if ln.startswith("final loss:")]
+    if second.returncode != 0 or not resumed or not final:
+        raise AssertionError(f"launch.train rerun exited "
+                             f"{second.returncode}: {second.stdout[-2000:]}"
+                             f"{second.stderr[-2000:]}")
+    last, first_loss = (float(x) for x in re.search(
+        r"final loss: ([0-9.]+) \(first: ([0-9.]+)\)", final[-1]).groups())
+    if not last < first_loss:
+        raise AssertionError(f"launch.train: {final[-1]}")
+    log(f"phase12d launch.train subprocesses: the first exited "
+        f"{first.returncode} on its injected failure; the rerun "
+        f"{resumed[-1][7:]}, {final[-1]} ({secs:.1f} s for both)")
+    return dict(seconds=secs, final=last, first=first_loss)
+
+
+def training_phase(device, count=None, *, reduced=False, batch=None,
+                   **launcher) -> dict:
+    """Phase 12 (12a-12d) in a temporary directory (removed after).
+    Returns the bag_lookup_bwd row of 12a and each piece's numbers."""
+    import tempfile
+
+    tr = train_setup(device, reduced=reduced, batch=batch)
+    bwd = bag_bwd_check(tr, device)
+    trained = train_phase(tr, device, count)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        loop = loop_phase(tr, trained, tmp, count)
+        launch = train_launcher_phase(device, tmp, **launcher)
+    return dict(bwd=bwd, trained={k: {kk: v for kk, v in r.items()
+                                      if kk not in ("params", "state")}
+                                  for k, r in trained.items()},
+                loop=loop, launcher=launch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=N_AUDIO,
@@ -3987,6 +4538,9 @@ def main(argv=None) -> int:
     del rec
     torch.cuda.empty_cache()
     stamp("phase 8")
+    checks["bag_lookup_bwd"] = training_phase(device, count)["bwd"]
+    torch.cuda.empty_cache()
+    stamp("phase 12")
     idx, base, queries, _ = build_phase(args.n, args.queries, device, count)
     wave_ids = wave_phase(idx, queries)
     build_phase(N_HOST, 16, device, count, device_extend=False,

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.distances import _no_tf32
 from repro_torch.launch.mesh import AxisGroup, axis_group
+from repro_torch.train.tree import tree_map
 
 
 def _staged(t: torch.Tensor, ag: AxisGroup) -> bool:
@@ -151,12 +152,6 @@ def compressed_psum(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     return total.to(torch.float32) * scale
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {key: _tree_map(fn, v) for key, v in tree.items()}
-    return fn(tree)
-
-
 def make_compressed_grad_allreduce(mesh, dp_axis) -> Callable:
     """tree -> tree: int8-compressed mean all-reduce over the DP axes of a
     dict (or a nest of dicts) of tensors, each leaf in its own dtype."""
@@ -165,7 +160,7 @@ def make_compressed_grad_allreduce(mesh, dp_axis) -> Callable:
     def one(g):
         return (compressed_psum(g, group) / float(group.size)).to(g.dtype)
 
-    return lambda grads: _tree_map(one, grads)
+    return lambda grads: tree_map(one, grads)
 
 
 # ---------------------------------------------------------------------------

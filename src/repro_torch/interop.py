@@ -8,7 +8,9 @@ codes whatever their encoders do; :func:`sharded_from_numpy` turns a
 ``ShardedDEG``'s stacked arrays and per-shard indexes into the port's, so
 both packages search the same sub-DEGs; :func:`recsys_model_from_numpy`
 turns a recsys parameter dict into a ``RecsysModel`` with the same
-weights.  The ``*_to_numpy`` functions bring the port's tensors back, so
+weights, and :func:`opt_state_from_numpy` an optimizer state of
+``repro.train.optimizer`` into the port's, so both packages take the same
+train steps.  The ``*_to_numpy`` functions bring the port's tensors back, so
 tests compare with ``np.testing`` and never tensor against array.
 Nothing here imports JAX.
 """
@@ -27,6 +29,7 @@ from repro_torch.core.search import SearchResult
 from repro_torch.distributed.index import ShardedDEG
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.quant.store import VectorStore
+from repro_torch.train.tree import tree_map
 
 # the JAX package's hop_backend values -> the port's
 HOP_BACKEND = {"jnp": "composed", "pallas": "fused",
@@ -123,7 +126,7 @@ def recsys_model_from_numpy(params: dict, cfg: RecsysConfig,
                             device="cuda") -> RecsysModel:
     """A ``RecsysModel`` holding the JAX package's recsys parameters
     (``init_params``' nested dict, leaves as numpy arrays) as float32
-    tensors on ``device``."""
+    tensors on ``device``, frozen."""
     def t(v):
         return torch.tensor(np.asarray(v, np.float32), device=device)
 
@@ -131,6 +134,46 @@ def recsys_model_from_numpy(params: dict, cfg: RecsysConfig,
         name: ({k: t(x) for k, x in v.items()} if isinstance(v, dict)
                else t(v))
         for name, v in params.items()})
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """A JAX optimizer state (``opt.init`` / ``opt.update``'s tree with
+    numpy leaves) as the port's: the same nested dicts with tensors of the
+    same dtypes on ``device``; a ``None`` leaf (a leaf ``partitioned``
+    masked out of this optimizer) is absent, and a dict left empty too."""
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            out = {k: walk(v) for k, v in node.items()}
+            return {k: v for k, v in out.items()
+                    if v is not None and not (isinstance(v, dict) and not v)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return torch.tensor(np.asarray(node), device=device)
+
+    return walk(state)
+
+
+def opt_state_to_numpy(state, like=None):
+    """The port's optimizer state with numpy leaves.  With ``like`` (the
+    JAX state it stands for, or any tree of that structure) the result has
+    ``like``'s structure, ``None`` where ``like`` has ``None``, so that the
+    JAX optimizer takes it."""
+    if like is None:
+        return tree_map(lambda t: t.detach().cpu().numpy(), state)
+
+    def walk(node, ref):
+        if ref is None:
+            return None
+        if isinstance(ref, dict):
+            node = node or {}
+            return {k: walk(node.get(k), v) for k, v in ref.items()}
+        if isinstance(ref, (list, tuple)):
+            return type(ref)(walk(node[i], v) for i, v in enumerate(ref))
+        return node.detach().cpu().numpy()
+
+    return walk(state, like)
 
 
 def store_to_numpy(store: VectorStore) -> dict:

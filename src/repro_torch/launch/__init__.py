@@ -1,2 +1,2 @@
-"""Launchers: the serving driver (``serve``) and the index builder
-(``build_index``)."""
+"""Launchers: the serving driver (``serve``), the index builder
+(``build_index``) and the recsys trainer (``train``)."""

@@ -3,8 +3,9 @@
 
 * :func:`embedding_bag_fixed` — fixed fields (B, F): a weighted gather-sum,
   the DLRM/DCN layout and DIN's pooling over its history.  The sum is the
-  ``bag_lookup`` kernel (``kernels/bag_lookup``); the mean divides outside
-  it.
+  ``bag_lookup`` kernel (``kernels/bag_lookup``) behind the autograd
+  Function :class:`BagLookup`, whose backward is the ``bag_lookup_bwd``
+  kernel; the mean divides outside it, under torch's autograd.
 * :func:`embedding_bag_ragged` / :func:`embedding_bag_max` — ragged bags
   flattened to (N,) with ``segment_ids``: a gather, then ``index_add_`` /
   ``scatter_reduce`` (the JAX package's ``take`` + ``segment_sum`` /
@@ -27,6 +28,30 @@ import torch
 from repro_torch.kernels.bag_lookup import ops as bag_ops
 
 
+class BagLookup(torch.autograd.Function):
+    """``bag_ops.bag_lookup(table, ids, weights)`` with its gradient to the
+    table and the weights from ``bag_ops.bag_lookup_bwd``: on a card each
+    is one call of a hand-written kernel, on the CPU its plain version.
+    The module's attributes are looked up at each call, so a caller that
+    routes them to the plain versions (``chip_smoke.py``) routes both."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights):
+        ctx.save_for_backward(table, ids, weights)
+        return bag_ops.bag_lookup(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        need_table = ctx.needs_input_grad[0]
+        need_w = weights is not None and ctx.needs_input_grad[2]
+        if not (need_table or need_w):
+            return None, None, None
+        grad_w, grad_table = bag_ops.bag_lookup_bwd(
+            table, ids, weights, g, need_w=need_w, need_table=need_table)
+        return grad_table, None, grad_w
+
+
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
                         weights: Optional[torch.Tensor] = None,
                         combiner: str = "sum") -> torch.Tensor:
@@ -35,7 +60,7 @@ def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
     is taken in float32."""
     if combiner not in ("sum", "mean"):
         raise ValueError(combiner)
-    out = bag_ops.bag_lookup(table, ids, weights)
+    out = BagLookup.apply(table, ids, weights)
     if combiner == "mean":
         w = (ids >= 0).to(torch.float32)
         if weights is not None:

@@ -1,20 +1,29 @@
-"""RecSys architectures for serving: DLRM (MLPerf), DCN-v2, DeepFM, DIN,
-ported from ``src/repro/models/recsys.py``.
+"""RecSys architectures: DLRM (MLPerf), DCN-v2, DeepFM, DIN, ported from
+``src/repro/models/recsys.py``.
 
 Common skeleton: huge sparse embedding tables (stacked per-field into ONE
 (V_total, E) table with static row offsets) -> a feature-interaction op
 (dot / cross / FM / target-attention) -> a small MLP tower -> 1 logit.
 
 The model is a :class:`RecsysModel` whose parameter names are the JAX
-parameter dict's leaves (``table``, ``top_mlp.w0``, ``cross_w``, ...); the
-module-level functions keep the JAX names and take the model in place of
-``(params, cfg)``.  The forward follows the JAX forward op for op, except
-that DIN's attention-pooled interest and ``user_embedding``'s pooled means
-go through :func:`embedding_bag_fixed`, whose sum is the ``bag_lookup``
-kernel on a card.  The port serves only: every entry point runs under
-``torch.inference_mode()``, and the parameters take no gradient (training
-waits for its slice).  Matrix products run in full float32: TF32 must stay
-off (``torch.backends.cuda.matmul.allow_tf32``, False by default).
+parameter dict's leaves (``table``, ``top_mlp.w0``, ``cross_w``, ...);
+``RecsysModel.params()`` gives them as the JAX package's nested dict (the
+same tensors), which is what the optimizers and the checkpoints of
+``repro_torch.train`` walk.  The forward follows the JAX forward op for op,
+except that DIN's attention-pooled interest and ``user_embedding``'s pooled
+means go through :func:`embedding_bag_fixed`, whose sum is the
+``bag_lookup`` kernel on a card and whose gradient is the
+``bag_lookup_bwd`` kernel.  Every other lookup is a plain gather
+(:func:`default_lookup`) with torch's embedding backward, as the JAX
+package takes it with ``jnp.take`` outside any Pallas kernel.
+
+Serving (``forward``, ``user_embedding``, ``serve_retrieval``) runs under
+``torch.inference_mode()`` on frozen parameters (``model.requires_grad_()``
+unfreezes them for a caller of its own).  Training goes through
+:func:`loss_fn`, which runs the same forward body with autograd on, over a
+model or over its ``params()`` dict.  Matrix products run in full float32:
+TF32 must stay off (``torch.backends.cuda.matmul.allow_tf32``, False by
+default).
 
 Ids outside a field's vocabulary are an error, as torch indexing makes
 them (an ``IndexError`` on the CPU, a device assert on a card), where
@@ -28,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.embedding_bag import (embedding_bag_fixed,
@@ -93,27 +103,34 @@ class RecsysConfig:
         raise ValueError(self.kind)
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class RecsysModel(nn.Module):
     """The parameters of one recsys model under the JAX dict's names:
-    tensors as parameters, towers as ``nn.ParameterDict``s."""
+    tensors as frozen parameters, towers as ``nn.ParameterDict``s."""
 
     def __init__(self, cfg: RecsysConfig, params: dict):
         super().__init__()
         self.cfg = cfg
+
+        def param(t):
+            return nn.Parameter(t, requires_grad=False)
+
         for name, value in params.items():
             if isinstance(value, dict):
-                value = nn.ParameterDict({k: _frozen(v)
+                value = nn.ParameterDict({k: param(v)
                                           for k, v in value.items()})
             else:
-                value = _frozen(value)
+                value = param(value)
             setattr(self, name, value)
 
     def forward(self, batch: dict) -> torch.Tensor:
         return forward(self, batch)
+
+    def params(self) -> dict:
+        """The parameters as the JAX package's nested dict (the same
+        tensors: an in-place update of a leaf updates the model)."""
+        return {name: (dict(m.items()) if isinstance(m, nn.ParameterDict)
+                       else m)
+                for name, m in {**self._parameters, **self._modules}.items()}
 
 
 # --------------------------------------------------------------------------
@@ -123,7 +140,7 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator,
                 device="cuda") -> RecsysModel:
     """Random parameters drawn from ``generator`` (on ``device``), in the
     JAX package's shapes and scales: the table at 0.01 times a truncated
-    normal, towers at ``1/sqrt(fan_in)``, zero biases."""
+    normal, towers at ``1/sqrt(fan_in)``, zero biases; frozen."""
     E = cfg.embed_dim
     g, dev = generator, device
     p: dict = {"table": dense_init(g, (cfg.total_rows, E), scale=0.01,
@@ -162,8 +179,20 @@ def as_tensors(batch: dict, device="cuda") -> dict:
 # lookup plumbing
 # --------------------------------------------------------------------------
 def default_lookup(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
-    """Plain gather: flat_ids (...,) global row ids -> (..., E)."""
-    return table[flat_ids.to(torch.int64)]
+    """Plain gather: flat_ids (...,) global row ids -> (..., E), or (...,)
+    from a vector (DeepFM's first-order weights).
+
+    ``F.embedding`` and not ``table[ids]``: the two gather alike, but the
+    backward of advanced indexing sums each row's duplicates on one warp,
+    which took 1.15 s of a 1.19 s DIN train step at the train_batch cell
+    (NVIDIA H100 80GB HBM3, 700.00 W), where the stream's Zipf head and the
+    history's -1 padding (clamped to row 0) name row 0 some 4 million
+    times; the embedding backward sorts the ids and sums a row's
+    duplicates in parallel pieces, in a fixed order."""
+    ids = flat_ids.to(torch.int64)
+    if table.dim() == 1:
+        return F.embedding(ids, table[:, None])[..., 0]
+    return F.embedding(ids, table)
 
 
 def check_rows(ids: torch.Tensor, n_rows: int) -> None:
@@ -202,68 +231,86 @@ def _dlrm_interact(emb: torch.Tensor, bot: torch.Tensor) -> torch.Tensor:
     return torch.cat([bot, flat], dim=1)
 
 
-@torch.inference_mode()
-def forward(model: RecsysModel, batch: dict) -> torch.Tensor:
-    """Returns logits (B,) float32."""
-    cfg = model.cfg
+def _params_cfg(model_or_params, cfg: Optional[RecsysConfig]):
+    if isinstance(model_or_params, RecsysModel):
+        return model_or_params.params(), model_or_params.cfg
+    if cfg is None:
+        raise ValueError("a parameter dict needs its RecsysConfig")
+    return model_or_params, cfg
+
+
+def _forward(p: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """The forward over a parameter dict, with autograd as the caller has
+    it; logits (B,) float32."""
     dt = cfg.dtype
     if cfg.kind == "din":
-        return _din_forward(model, batch)
+        return _din_forward(p, batch, cfg)
     gids = global_ids(cfg, batch["sparse"])
-    emb = default_lookup(model.table, gids).to(dt)            # (B, F, E)
+    emb = default_lookup(p["table"], gids).to(dt)             # (B, F, E)
     if cfg.kind == "dlrm":
         dense = torch.log1p(torch.clamp_min(batch["dense"].to(dt), 0.0))
-        bot = apply_mlp_tower(model.bot_mlp, dense, act=torch.relu,
+        bot = apply_mlp_tower(p["bot_mlp"], dense, act=torch.relu,
                               final_act=torch.relu)
         x = _dlrm_interact(emb, bot)
-        out = apply_mlp_tower(model.top_mlp, x, act=torch.relu)
+        out = apply_mlp_tower(p["top_mlp"], x, act=torch.relu)
         return out[:, 0].to(torch.float32)
     if cfg.kind == "dcn-v2":
         dense = torch.log1p(torch.clamp_min(batch["dense"].to(dt), 0.0))
         x0 = torch.cat([dense, emb.reshape(emb.shape[0], -1)], dim=1)
         x = x0
         for i in range(cfg.n_cross):
-            w = model.cross_w[i].to(dt)
-            b = model.cross_b[i].to(dt)
+            w = p["cross_w"][i].to(dt)
+            b = p["cross_b"][i].to(dt)
             x = x0 * (x @ w + b) + x                          # DCN-v2 cross
-        out = apply_mlp_tower(model.top_mlp, x, act=torch.relu)
+        out = apply_mlp_tower(p["top_mlp"], x, act=torch.relu)
         return out[:, 0].to(torch.float32)
     if cfg.kind == "deepfm":
         # FM second order: 0.5 * ((sum v)^2 - sum v^2), summed over E
         s = torch.sum(emb, dim=1)
         s2 = torch.sum(emb * emb, dim=1)
         fm2 = 0.5 * torch.sum(s * s - s2, dim=1)
-        fm1 = torch.sum(default_lookup(model.fm_w, gids), dim=1)
-        deep = apply_mlp_tower(model.top_mlp, emb.reshape(emb.shape[0], -1),
+        fm1 = torch.sum(default_lookup(p["fm_w"], gids), dim=1)
+        deep = apply_mlp_tower(p["top_mlp"], emb.reshape(emb.shape[0], -1),
                                act=torch.relu)[:, 0]
-        return (fm1 + fm2 + deep + model.fm_b).to(torch.float32)
+        return (fm1 + fm2 + deep + p["fm_b"]).to(torch.float32)
     raise ValueError(cfg.kind)
 
 
-def _din_forward(model: RecsysModel, batch: dict) -> torch.Tensor:
-    cfg = model.cfg
+def _din_forward(p: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     dt = cfg.dtype
     gids = global_ids(cfg, batch["sparse"])
-    emb = default_lookup(model.table, gids).to(dt)            # (B, F, E)
+    emb = default_lookup(p["table"], gids).to(dt)             # (B, F, E)
     target = emb[:, cfg.item_field]                           # (B, E)
     hist_gids = history_ids(cfg, batch["hist"])               # (B, S)
     valid = (hist_gids >= 0)[..., None].to(dt)
-    hist = default_lookup(model.table, hist_gids.clamp_min(0)).to(dt) * valid
+    hist = default_lookup(p["table"], hist_gids.clamp_min(0)).to(dt) * valid
     t = target[:, None, :].expand_as(hist)
     af = torch.cat([hist, t, hist - t, hist * t], dim=-1)
-    scores = apply_mlp_tower(model.attn_mlp, af, act=torch.sigmoid)
+    scores = apply_mlp_tower(p["attn_mlp"], af, act=torch.sigmoid)
     scores = torch.where(valid > 0, scores, -1e30)
     w = torch.softmax(scores, dim=1)                          # (B, S, 1)
-    # sum_s w[b, s] * table[hist_gids[b, s]], padded slots contributing 0
-    interest = embedding_bag_fixed(model.table, hist_gids, w[..., 0]).to(dt)
+    # sum_s w[b, s] * table[hist_gids[b, s]], padded slots contributing 0:
+    # the bag_lookup kernel, and bag_lookup_bwd for its gradient
+    interest = embedding_bag_fixed(p["table"], hist_gids, w[..., 0]).to(dt)
     x = torch.cat([emb.reshape(emb.shape[0], -1), interest], dim=1)
-    out = apply_mlp_tower(model.top_mlp, x, act=torch.relu)
+    out = apply_mlp_tower(p["top_mlp"], x, act=torch.relu)
     return out[:, 0].to(torch.float32)
 
 
-def loss_fn(model: RecsysModel, batch: dict):
-    """Mean binary cross-entropy of the logits against ``batch["label"]``."""
-    logits = forward(model, batch)
+@torch.inference_mode()
+def forward(model: RecsysModel, batch: dict) -> torch.Tensor:
+    """Serving: logits (B,) float32, under ``torch.inference_mode()``."""
+    return _forward(model.params(), batch, model.cfg)
+
+
+def loss_fn(model_or_params, batch: dict,
+            cfg: Optional[RecsysConfig] = None):
+    """Mean binary cross-entropy of the logits against ``batch["label"]``,
+    with gradients to every parameter that takes one: over a
+    ``RecsysModel``, or over a parameter dict with its ``cfg`` (what
+    ``train.steps.make_train_step`` hands it)."""
+    p, cfg = _params_cfg(model_or_params, cfg)
+    logits = _forward(p, batch, cfg)
     y = batch["label"].to(torch.float32)
     loss = torch.mean(torch.clamp_min(logits, 0) - logits * y
                       + torch.log1p(torch.exp(-torch.abs(logits))))

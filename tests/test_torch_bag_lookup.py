@@ -10,7 +10,17 @@ port's ``models/embedding_bag.py`` against the JAX package.
 * ``embedding_bag_fixed`` (sum, mean, weighted), ``embedding_bag_ragged``,
   ``embedding_bag_max`` and ``stack_vocab_offsets`` against
   ``repro.models.embedding_bag``: the same tolerance, offsets exactly.
+* The gradient: ``bag_lookup_bwd``'s plain version and the autograd
+  Function ``BagLookup`` (through ``embedding_bag_fixed``, sum and mean)
+  against ``jax.vjp`` of the JAX ``embedding_bag_fixed``, with -1
+  padding, ids >= V, a row named F times in one bag and Zipf-skewed ids,
+  weighted and not, at rtol 1e-6 of the sum of the magnitudes each entry
+  adds (``_assert_grad``); a float64 ``gradcheck`` of the Function; a
+  numpy model of the kernel's sorted, chunked order
+  (``csrc/bag_lookup_bwd.cu`` runs only on a card) against the plain
+  ``grad_table`` at every chunk size; ``bwd_order``'s keys.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -219,3 +229,240 @@ def test_stack_vocab_offsets_matches_jax(vocab):
     jtotal, joff = jeb.stack_vocab_offsets(vocab)
     assert total == jtotal and off.dtype == torch.int32
     np.testing.assert_array_equal(off.numpy(), np.asarray(joff))
+
+
+# ---------------------------------------------------------------------------
+# the gradient: bag_lookup_bwd's plain version, the autograd Function, and
+# a model of the kernel's chunked, sorted order
+# ---------------------------------------------------------------------------
+# the gradient's tolerance: rtol 1e-6 of the sum of the magnitudes each
+# entry adds (|got - want| <= 1e-6 * sum |terms| + 1e-7).  Both packages
+# add the same float32 products, in different orders, so an entry that
+# cancels keeps an error of its terms' scale, not of its own.
+BWD_RTOL, BWD_ATOL = 1e-6, 1e-7
+
+
+def _assert_grad(got, want, mag, what):
+    err = np.abs(np.asarray(got) - np.asarray(want))
+    bound = BWD_RTOL * mag + BWD_ATOL
+    assert (err <= bound).all(), (
+        f"{what}: {int((err > bound).sum())} entries off, worst "
+        f"{float((err - bound).max()):.3g} past the bound")
+
+
+def _magnitudes(table, ids, w, g, combiner="sum"):
+    """sum |terms| of grad_w (B, F) and grad_table (V, E).  Under "mean"
+    g is divided by each bag's weight sum, and dL/dw also takes the
+    division's term, out[b] . g[b] / sum."""
+    V, E = table.shape
+    valid = ids >= 0
+    safe = np.clip(ids, 0, V - 1)
+    wv = valid * (1.0 if w is None else w)
+    extra = 0.0
+    if combiner == "mean":
+        den = np.maximum(wv.sum(1, keepdims=True), 1.0)
+        g = g / den
+        out = (table[safe] * wv[..., None]).sum(1) / den
+        extra = np.abs(out * g).sum(-1, keepdims=True)
+    mag_w = np.where(valid, np.abs(table[safe] * g[:, None, :]).sum(-1)
+                     + extra, 0)
+    ww = valid.astype(np.float64) * (1.0 if w is None else np.abs(w))
+    mag_t = np.zeros((V, E))
+    np.add.at(mag_t, safe.reshape(-1),
+              (ww[..., None] * np.abs(g)[:, None, :]).reshape(-1, E))
+    return mag_w, mag_t
+
+
+def _bwd_inputs(V, E, B, F, seed, zipf=False):
+    """Inputs with -1 padding, ids >= V (clipped), duplicates and, with
+    ``zipf``, the stream's Zipf-skewed ids (a = 1.3: most entries on a few
+    rows)."""
+    rng, table, ids, w = _inputs(V, E, B, F, seed)
+    if zipf:
+        ids = ((rng.zipf(1.3, size=(B, F)) - 1) % V).astype(np.int32)
+    ids[rng.random((B, F)) < 0.25] = INVALID
+    ids[0, :3] = [V, V + 5, 2 * V]                       # clipped to V - 1
+    ids[1, :] = ids[1, 0] if ids[1, 0] >= 0 else 3      # one row, F times
+    g = rng.normal(size=(B, E)).astype(np.float32)
+    return table, ids, w, g
+
+
+def _jax_vjp(table, ids, w, g, combiner="sum"):
+    """(grad_w or None, grad_table) of JAX's embedding_bag_fixed."""
+    if w is None:
+        f = lambda t: jeb.embedding_bag_fixed(t, jnp.asarray(ids), None,
+                                              combiner)
+        _, vjp = jax.vjp(f, jnp.asarray(table))
+        (gt,) = vjp(jnp.asarray(g))
+        return None, np.asarray(gt)
+    f = lambda t, ww: jeb.embedding_bag_fixed(t, jnp.asarray(ids), ww,
+                                              combiner)
+    _, vjp = jax.vjp(f, jnp.asarray(table), jnp.asarray(w))
+    gt, gw = vjp(jnp.asarray(g))
+    return np.asarray(gw), np.asarray(gt)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("V,E,B,F,zipf", [
+    pytest.param(50, 8, 6, 9, False, id="50-8-6-9"),
+    pytest.param(37, 7, 5, 12, False, id="37-7-5-12"),
+    pytest.param(400, 18, 16, 100, True, id="din-zipf"),
+])
+def test_bag_lookup_bwd_plain_matches_jax_vjp(V, E, B, F, zipf, weighted):
+    table, ids, w, g = _bwd_inputs(V, E, B, F, V + F, zipf)
+    w = w if weighted else None
+    gw, gt = bag_ops.bag_lookup_bwd(T(table), T(ids),
+                                    None if w is None else T(w), T(g))
+    want_w, want_t = _jax_vjp(table, ids, w, g)
+    mag_w, mag_t = _magnitudes(table, ids, w, g)
+    assert gt.dtype == torch.float32 and gt.shape == (V, E)
+    assert gw.dtype == torch.float32 and gw.shape == (B, F)
+    _assert_grad(gt, want_t, mag_t, "grad_table")
+    if w is not None:
+        _assert_grad(gw, want_w, mag_w, "grad_w")
+    # an invalid id's entry has no weight gradient and its row no share
+    assert not gw.numpy()[ids < 0].any()
+    untouched = np.setdiff1d(np.arange(V), np.clip(ids[ids >= 0], 0, V - 1))
+    assert not gt.numpy()[untouched].any()
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_embedding_bag_fixed_gradient_matches_jax(combiner, weighted):
+    """Through the autograd Function (the mean divides under torch's
+    autograd), against jax.vjp of JAX's embedding_bag_fixed."""
+    table, ids, w, g = _bwd_inputs(60, 10, 7, 8, 21)
+    ids[2, :] = INVALID                                  # mean over nothing
+    w = w if weighted else None
+    t = T(table).requires_grad_()
+    tw = None if w is None else T(w).requires_grad_()
+    out = teb.embedding_bag_fixed(t, T(ids), tw, combiner)
+    out.backward(T(g))
+    want_w, want_t = _jax_vjp(table, ids, w, g, combiner)
+    mag_w, mag_t = _magnitudes(table, ids, w, g, combiner)
+    _assert_grad(t.grad, want_t, mag_t, "grad_table")
+    if w is not None:
+        _assert_grad(tw.grad, want_w, mag_w, "grad_w")
+
+
+def test_bag_lookup_function_gradcheck_in_float64(monkeypatch):
+    """``torch.autograd.gradcheck`` of the Function in float64 on a tiny
+    shape.  The wrappers compute in float32, as the JAX wrapper does; here
+    they are routed to the plain versions in the inputs' float64, so the
+    check holds the backward's formula and the Function's plumbing (the
+    gradient order, the ids' None, the masks) to finite differences."""
+    def fwd(table, ids, weights):
+        V = table.shape[0]
+        w = torch.ones(ids.shape, dtype=table.dtype) if weights is None \
+            else weights
+        w = torch.where(ids < 0, 0.0, w)
+        return (table[ids.clamp(0, V - 1).long()] * w[..., None]).sum(1)
+
+    def bwd(table, ids, weights, g, need_w=True, need_table=True):
+        gw, gt = bag_ops.bag_lookup_bwd_ref(table, ids, weights, g)
+        return gw if need_w else None, gt if need_table else None
+
+    monkeypatch.setattr(bag_ops, "bag_lookup", fwd)
+    monkeypatch.setattr(bag_ops, "bag_lookup_bwd", bwd)
+    rng = np.random.default_rng(5)
+    table = torch.tensor(rng.normal(size=(6, 3)), requires_grad=True)
+    ids = torch.tensor([[0, 5, -1, 2], [5, 5, 9, -1], [1, 3, 3, 0]],
+                       dtype=torch.int32)
+    w = torch.tensor(rng.uniform(0.5, 1.5, size=(3, 4)), requires_grad=True)
+    assert torch.autograd.gradcheck(teb.BagLookup.apply, (table, ids, w))
+    assert torch.autograd.gradcheck(
+        lambda t: teb.BagLookup.apply(t, ids, None), (table,))
+
+
+def test_bag_lookup_bwd_on_the_cpu_launches_nothing():
+    table, ids, w, g = _bwd_inputs(30, 6, 4, 5, 11)
+    before = bag_ops.launches_bwd
+    a = bag_ops.bag_lookup_bwd(T(table), T(ids), T(w), T(g))
+    b = bag_ops.bag_lookup_bwd(T(table), T(ids), T(w), T(g), impl="ref")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    gw, gt = bag_ops.bag_lookup_bwd(T(table), T(ids), T(w), T(g),
+                                    need_w=False)
+    assert gw is None and torch.equal(gt, a[1])
+    assert bag_ops.launches_bwd == before
+
+
+def test_bag_lookup_bwd_rejects_what_the_kernel_does_not_take():
+    table, ids = torch.zeros((4, 8)), torch.zeros((2, 3), dtype=torch.int32)
+    g = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="g "):
+        bag_ops.bag_lookup_bwd(table, ids, None, torch.zeros((2, 7)))
+    with pytest.raises(ValueError):                      # int64 ids
+        bag_ops.bag_lookup_bwd(table, ids.long(), None, g)
+    with pytest.raises(ValueError):                      # weights' shape
+        bag_ops.bag_lookup_bwd(table, ids, torch.ones((3, 2)), g)
+    with pytest.raises(ValueError, match="impl"):
+        bag_ops.bag_lookup_bwd(table, ids, None, g, impl="triton")
+
+
+def _kernel_model(V, E, ids, w, g, chunk):
+    """The kernel's arithmetic order in numpy: bwd_order's stable sort,
+    row starts by binary search, the chunk pass (a row wholly inside a
+    chunk written straight out, a row across a chunk edge leaving a
+    partial in slot 0 or 1) and the rows pass (zeros, or the partials in
+    chunk order)."""
+    keys, perm = (x.numpy() for x in bag_ops.bwd_order(T(ids), V))
+    B, F = ids.shape
+    wf = np.ones(B * F, np.float32) if w is None else w.reshape(-1)
+    row_start = np.searchsorted(keys, np.arange(V + 1), side="left")
+    n_valid = row_start[V]
+    n_chunks = -(-(B * F) // chunk)
+    partial = np.full((n_chunks, 2, E), np.nan, np.float32)
+    out = np.full((V, E), np.nan, np.float32)
+    for c in range(n_chunks):
+        lo, hi = c * chunk, min(c * chunk + chunk, n_valid)
+        j = lo
+        while j < hi:
+            row, seg = keys[j], j
+            acc = np.zeros(E, np.float32)
+            while j < hi and keys[j] == row:
+                acc = (acc + wf[perm[j]] * g[perm[j] // F]).astype(np.float32)
+                j += 1
+            if row_start[row] >= lo and row_start[row + 1] <= hi:
+                assert np.isnan(out[row]).all()          # written once
+                out[row] = acc
+            else:
+                partial[c, 0 if seg == lo else 1] = acc
+    for r in range(V):
+        rs, re = row_start[r], row_start[r + 1]
+        if rs < re and rs // chunk == (re - 1) // chunk:
+            continue
+        assert np.isnan(out[r]).all()
+        acc = np.zeros(E, np.float32)
+        if rs < re:
+            c0, c1 = rs // chunk, (re - 1) // chunk
+            acc = partial[c0, 0 if rs == c0 * chunk else 1].copy()
+            for c in range(c0 + 1, c1 + 1):
+                acc = acc + partial[c, 0]
+        out[r] = acc
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8, 64, 4096])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_kernel_order_model_matches_the_plain_grad_table(chunk, weighted):
+    """The sorted, chunked order of ``csrc/bag_lookup_bwd.cu`` (modelled
+    in numpy: the kernel itself runs only on a card) gives the plain
+    version's ``grad_table`` at every chunk size, rows crossing one and
+    many chunk edges and the Zipf head among them.  The sums are taken in
+    another order, so to float32 rounding (rtol 1e-5 / atol 1e-6, the
+    tolerance ``chip_smoke.py`` holds the kernel to)."""
+    table, ids, w, g = _bwd_inputs(40, 5, 12, 9, 31, zipf=True)
+    w = w if weighted else None
+    got = _kernel_model(40, 5, ids, w, g, chunk)
+    _, want = bag_ops.bag_lookup_bwd(T(table), T(ids),
+                                     None if w is None else T(w), T(g))
+    np.testing.assert_allclose(got, want.numpy(), rtol=RTOL, atol=ATOL)
+
+
+def test_bwd_order_sorts_by_row_stably_invalid_last():
+    ids = torch.tensor([[3, -1, 3, 9], [0, 3, 12, -1]], dtype=torch.int32)
+    keys, perm = bag_ops.bwd_order(ids, 10)
+    assert keys.dtype == torch.int32 and perm.dtype == torch.int64
+    assert keys.tolist() == [0, 3, 3, 3, 9, 9, 10, 10]
+    assert perm.tolist() == [4, 0, 2, 5, 3, 6, 1, 7]

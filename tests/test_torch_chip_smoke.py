@@ -77,6 +77,8 @@ def test_phase2_rows(rehearsal, recsys):
     # over the audio size's 53,387
     rows, host_loop = cs.phase2("cpu", n_queries=64, n_rows=3000)
     rows["bag_lookup"] = cs.bag_checks(recsys, "cpu")[0]   # as main() does
+    rows["bag_lookup_bwd"] = cs.bag_bwd_check(             # phase 12's row
+        cs.train_setup("cpu", reduced=True, batch=64, steps=1), "cpu")
     assert set(rows) == set(cs.KERNELS)
     # the host loops' launches beside the whole search, by counter: none
     # on the CPU, where every wrapper takes its plain version
@@ -352,7 +354,7 @@ def test_main_path_launch_rule(monkeypatch):
         with pytest.raises(AssertionError, match="host loops never"):
             cs.check_main_path_launches(launches, host)
     for name in ("beam_search", "extend_select", "mrng_occlusion",
-                 "l2_topk", "bag_lookup"):
+                 "l2_topk", "bag_lookup", "bag_lookup_bwd"):
         launches, host = _launch_counts()
         launches[name] = 0
         with pytest.raises(AssertionError, match="main path never"):
@@ -687,7 +689,7 @@ def test_main_keeps_its_kernels_and_ok_lines():
     assert set(cs.KERNELS) == {
         "gather_dist", "beam_merge", "fused_hop", "mrng_occlusion",
         "gather_dist_q", "pq_adc", "l2_topk", "bag_lookup", "beam_search",
-        "extend_select"}
+        "extend_select", "bag_lookup_bwd"}
     src = inspect.getsource(cs.main)
     order = [src.index(s) for s in (
         "compare_quant_phase(", "persist_serve_phase(", "baselines_phase(",

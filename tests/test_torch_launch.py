@@ -138,3 +138,59 @@ def test_serve_loads_a_legacy_archive(snapshot, capsys, tmp_path):
     out = capsys.readouterr().out
     assert float(re.search(r"recall@10=([0-9.]+)",
                            _line(out, "served 32 queries")).group(1)) >= 0.85
+
+
+def test_train_fails_then_resumes(capsys, tmp_path):
+    """``launch.train``: a run with ``--fail-at 12`` raises after step 12,
+    before its checkpoint; the rerun resumes after the step-10 checkpoint
+    (at step 11) and its last loss is below its first.  The batches are
+    256 samples: at the default 16, one batch's BCE noise is larger than
+    what 19 steps of the warm-up learn."""
+    from repro_torch.launch import train
+    from repro_torch.train.loop import InjectedFailure
+
+    args = ["--arch", "din", "--steps", "30", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "5",
+            "--batch", "256"]
+    with pytest.raises(InjectedFailure, match="step 12"):
+        train.main(args + ["--fail-at", "12"])
+    capsys.readouterr()
+    train.main(args)
+    out = capsys.readouterr().out
+    assert "[loop] resumed from step 10" in out
+    m = re.search(r"final loss: ([0-9.]+) \(first: ([0-9.]+)\)", out)
+    assert float(m.group(1)) < float(m.group(2))
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "egnn"])
+def test_train_names_the_roadmap_item_for_other_families(arch):
+    from repro_torch.launch import train
+
+    with pytest.raises(ValueError, match="ROADMAP A12"):
+        train.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown arch"):
+        train.main(["--arch", "no-such-arch", "--device", "cpu"])
+
+
+def test_train_batch_trainer_builds_the_mlperf_split():
+    """The train_batch cell's trainer on a reduced config: SGD state for
+    the table alone, AdamW moments for the towers, and batches made once
+    per step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train_batch_trainer
+
+    step, params, state, batch_fn = train_batch_trainer(
+        "din", device="cpu", batch=32, cfg=get_arch("din").reduced())
+    assert set(state) == {"embed", "dense"}
+    assert set(state["embed"]) == {"count"}
+    assert "table" not in state["dense"]["mu"]
+    b = batch_fn(0)
+    assert b["hist"].shape == (32, 10) and batch_fn(0) is b
+    assert set(batch_fn.host_s) == {0}
+    table = params["table"].clone()
+    (params, state), m = step(params, state, b)
+    assert torch.isfinite(m["loss"]) and not torch.equal(params["table"],
+                                                         table)
+    assert int(state["embed"]["count"]) == int(state["dense"]["count"]) == 1
