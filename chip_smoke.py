@@ -14,7 +14,10 @@ refine
 the index, delete vertices from it, and serve again; then serve the
 recsys models DIN and DCN-v2 at their published widths, their embedding
 bags through the bag_lookup kernel, and train both at the train_batch
-cell's width, DIN's bag gradient through the bag_lookup_bwd kernel.
+cell's width, DIN's bag gradient through the bag_lookup_bwd kernel; and,
+first of all, serve the LMs gemma3-12b and qwen3-moe-30b-a3b at their
+published widths and hold the five reduced LMs on the card against the
+CPU.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -251,7 +254,44 @@ Phases (any failure raises and exits non-zero):
      12d. python -m repro_torch.launch.train --arch din --steps 60
      --batch 256 --fail-at 30 as a subprocess exits non-zero; its rerun
      resumes and prints a final loss below its first;
-  13. the kernels' JSON line, then the final JSON line.
+  13. (run first, right after phase 1's build, while the card holds
+     nothing: each served model in a process of its own) the LM family,
+     no kernel on its path, weights from init_params (a torch.Generator
+     seeded 0 on the card) and seeded tokens:
+     13a. gemma3-12b whole (48 layers, 46.5 GB of float32 parameters, 4 x
+     param_count bytes required): init seconds and memory_allocated; one
+     serve_prefill of 1 x 32,768 tokens (prefill_32k's length, its batch
+     cut from 32 to 1) into a cache of 32,784 slots (s, tokens/s, the
+     model flops over s x the bfloat16 peak), then 16 greedy
+     serve_decode_step calls (decode_32k's context, its batch cut from 128
+     to 1; ms a step by CUDA events beside the bytes bound of the float32
+     parameters and the cache), every logit finite, pos at 32,784, peak
+     bytes, the idle share of a step; readings by CUDA events of one
+     layer's gqa_attention over the 32,768 queries and of a decode step's
+     float32 -> bfloat16 weight casts; then at B=2 and 2,049 tokens (past
+     the 1,024-slot ring) forward_train's logits at positions 2,047 and
+     2,048 against serve_prefill of 2,048 tokens and one decode step:
+     float32 at rtol 1e-3 atol 1e-3, bfloat16 no farther apart than the
+     bfloat16 forward is from the float32 one (the share past 2e-2
+     logged);
+     13b. qwen3-moe-30b-a3b at full width, 16 of its 48 layers (40.5 GB):
+     as 13a with a prefill of 4 x 4,096 (16,384 tokens a MoE layer at
+     capacity 1,288) and decode at B=4; the readings add one layer's
+     moe_ffn and its dispatch's one-hot cumsum; the check at 257 tokens
+     and capacity factor 16 (= E / K: no assignment drops);
+     13c. the five reduced() configs, card against CPU on the same
+     weights and tokens: forward_train's logits and aux, serve_prefill of
+     12 tokens and 4 decode steps with their caches, embed_sequences, in
+     float32 (rtol 1e-4 atol 1e-5, loss_fn and every gradient too) and
+     bfloat16 (2e-2), and qwen3's at moe_groups=2; an MoE token routed
+     otherwise at a near tie (router gap under 1/32) leaves out what it
+     reaches;
+     13d. python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b
+     --steps 60 --batch 16 --seq 64 --ckpt-every 20 --fail-at 30 as a
+     subprocess exits non-zero; its rerun resumes and prints a final loss
+     below its first;
+  14. the kernels' JSON line (the ten kernel rows: phase 13 launches
+     none), then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
@@ -355,7 +395,33 @@ TRAIN_PARAM_RTOL = 1e-4            # 12b: parameters after each, kernels vs plai
 TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 5, 7   # 12c: checkpoints at 0 and 5
 # 12d: launch.train on the reduced DIN; at its default batch of 16 one
 # batch's BCE noise is larger than what the steps learn
-LAUNCH_TRAIN = dict(steps=60, fail_at=30, batch=256)
+LAUNCH_TRAIN = dict(arch="din", steps=60, fail_at=30, batch=256)
+# phase 13: LM serving at published widths, seeded weights (a
+# torch.Generator seeded 0 on the card) and seeded tokens.  gemma3-12b
+# whole (46.5 GB of float32 parameters) at prefill_32k's length with its
+# batch cut from 32 to 1, then decode_32k's context with its batch cut from
+# 128 to 1; qwen3-moe-30b-a3b at full width with 16 of its 48 layers (40.5
+# GB: the whole model is 119.1 GB), a prefill of 4 x 4,096 tokens (16,384
+# through each MoE layer at capacity 1,288) and decode at B=4
+LM_SERVED = (
+    dict(arch="gemma3-12b", layers=None, B=1, S=32_768,
+         check=dict(B=2, S=2_049)),
+    dict(arch="qwen3-moe-30b-a3b", layers=16, B=4, S=4_096,
+         # capacity factor E / K: C >= T, no assignment can drop
+         check=dict(B=2, S=257, capacity_factor=16.0)),
+)
+LM_DECODE = 16                     # greedy decode steps after the prefill
+# 13a-b: float32 held at LM_TOL; bfloat16 held to the bfloat16 forward's
+# own distance from the float32 one, LM_TOL's share logged
+LM_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-2)}
+LM_REDUCED_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}  # 13c
+LM_REDUCED = dict(B=2, S=40, prompt=12, decode=4)  # 13c: S past q_chunk 32
+# a router logit gap within a few bfloat16 steps: two runs that round an
+# activation to another neighbour may send such a token to another expert
+# (13b's float32 check and 13c's comparisons leave out what it reaches)
+ROUTE_TIE = 1 / 32
+LAUNCH_LM = dict(arch="qwen3-moe-30b-a3b", steps=60, fail_at=30, batch=16,
+                 seq=64, ckpt_every=20)
 
 KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
@@ -4428,16 +4494,19 @@ def loop_phase(tr: dict, trained: dict, tmp, count=None, *,
                 ckpt_bytes=nbytes)
 
 
-def train_launcher_phase(device, tmp, **kw) -> dict:
-    """Phase 12d: ``python -m repro_torch.launch.train --arch din`` (the
-    reduced config, batches of LAUNCH_TRAIN["batch"]) as a subprocess with
-    a checkpoint directory and ``--fail-at``: it must exit non-zero with
-    the injected failure; the rerun must resume from a checkpoint and print
-    a final loss below its first."""
+def train_launcher_phase(device, tmp, tag="phase12d", **kw) -> dict:
+    """Phase 12d (13d with LAUNCH_LM): ``python -m repro_torch.launch.train
+    --arch din`` (the reduced config, batches of LAUNCH_TRAIN["batch"]) as
+    a subprocess with a checkpoint directory and ``--fail-at``: it must
+    exit non-zero with the injected failure; the rerun must resume from a
+    checkpoint and print a final loss below its first."""
     a = dict(LAUNCH_TRAIN, **kw)
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "din",
-           "--steps", str(a["steps"]), "--batch", str(a["batch"]),
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           a["arch"], "--steps", str(a["steps"]), "--batch", str(a["batch"]),
            "--ckpt-dir", os.path.join(tmp, "launcher"), "--device", device]
+    for key in ("seq", "ckpt_every"):
+        if key in a:
+            cmd += [f"--{key.replace('_', '-')}", str(a[key])]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
         os.pathsep + os.environ["PYTHONPATH"]
         if os.environ.get("PYTHONPATH") else ""))
@@ -4462,7 +4531,8 @@ def train_launcher_phase(device, tmp, **kw) -> dict:
         r"final loss: ([0-9.]+) \(first: ([0-9.]+)\)", final[-1]).groups())
     if not last < first_loss:
         raise AssertionError(f"launch.train: {final[-1]}")
-    log(f"phase12d launch.train subprocesses: the first exited "
+    log(f"{tag} launch.train --arch {a['arch']} subprocesses: the first "
+        f"exited "
         f"{first.returncode} on its injected failure; the rerun "
         f"{resumed[-1][7:]}, {final[-1]} ({secs:.1f} s for both)")
     return dict(seconds=secs, final=last, first=first_loss)
@@ -4484,6 +4554,601 @@ def training_phase(device, count=None, *, reduced=False, batch=None,
                                       if kk not in ("params", "state")}
                                   for k, r in trained.items()},
                 loop=loop, launcher=launch)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: LM serving (gemma3-12b, qwen3-moe-30b-a3b) and the reduced LMs
+# ---------------------------------------------------------------------------
+def lm_setup(arch: str, device, *, layers=None, cfg=None, seed=0) -> dict:
+    """The published config of ``arch`` (or ``cfg``), cut to ``layers``
+    layers where given, and its model from ``init_params`` with a
+    torch.Generator on ``device`` seeded ``seed``: init seconds, the bytes
+    allocated after it, and the parameters' own bytes, which must be 4 x
+    ``param_count`` (float32, nothing else held)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as TT
+
+    cfg = cfg or get_arch(arch).model
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = TT.init_params(cfg, gen, device)
+    sync()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if nbytes != 4 * cfg.param_count:
+        raise AssertionError(f"{arch}: {nbytes:,} parameter bytes for "
+                             f"{cfg.param_count:,} parameters")
+    alloc = torch.cuda.memory_allocated() if str(device).startswith("cuda") \
+        else None
+    log(f"phase13 {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab:,}; {cfg.param_count:,} "
+        f"parameters ({cfg.active_param_count:,} active), {nbytes:,} "
+        f"bytes initialised in {init_s:.3f} s; memory_allocated "
+        f"{alloc if alloc is None else f'{alloc:,}'}")
+    return dict(arch=arch, cfg=cfg, model=model, init_s=init_s,
+                param_bytes=nbytes, allocated=alloc)
+
+
+def lm_tokens(cfg, B: int, S: int, device, seed=0):
+    rng = np.random.default_rng(seed)
+    import torch
+
+    return torch.tensor(rng.integers(0, cfg.vocab, (B, S)), dtype=torch.int32,
+                        device=device)
+
+
+def lm_serve_phase(lm: dict, B: int, S: int, device, *, steps=LM_DECODE,
+                   seed=0) -> dict:
+    """13a / 13b: one prefill of B x S seeded tokens into a cache of
+    ``S + steps`` slots (seconds, tokens/s, the model flops over seconds x
+    the bfloat16 peak), then ``steps`` greedy decode steps (ms a step by
+    CUDA events, median, beside the bytes bound: the float32 parameters
+    and the cache read once over the HBM rate; wall ms too); peak bytes;
+    the idle share of one decode step (the last one again, on the same
+    slot: it writes the values it wrote).  Every logit must be finite and
+    ``pos`` end at S + steps."""
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.models import transformer as TT
+
+    model, cfg = lm["model"], lm["cfg"]
+    toks = lm_tokens(cfg, B, S, device, seed)
+    # a warm-up prefill past one query chunk: the process's first launches
+    # load their kernels and cuBLAS's
+    warm = min(S, cfg.q_chunk + 1)
+    _, warm_ms = _timed(TT.serve_prefill, model, toks[:, :warm])
+    peak_memory(reset=True)
+    (logits, cache), prefill_ms = _timed(TT.serve_prefill, model, toks,
+                                         S + steps)
+    prefill_s = prefill_ms / 1e3
+    finite = torch.isfinite(logits).all()
+    ms, walls = [], []
+    tok = torch.argmax(logits, dim=-1, keepdim=True)
+    for _ in range(steps):
+        last = (tok, cache["pos"])
+        t0 = time.perf_counter()
+        (logits, cache), dev_ms = _event_timed(TT.serve_decode_step, model,
+                                               cache, tok)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        ms.append(dev_ms)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+    peak = peak_memory()
+    if not bool(finite):
+        raise AssertionError(f"{lm['arch']}: a non-finite logit")
+    if cache["pos"] != S + steps:
+        raise AssertionError(f"{lm['arch']}: pos {cache['pos']}")
+    flops = roofline.lm_model_flops(cfg, "prefill", B, S)
+    mfu = flops / (prefill_s * roofline.PEAK_FLOPS_BF16)
+    kv = sum(t.numel() * t.element_size() for t in cache["k"] + cache["v"])
+    bms, by = bound_ms(lm["param_bytes"] + kv, 0.0)
+    med = float(np.median(ms[1:] or ms))
+    log(f"phase13 {lm['arch']} prefill B={B} S={S:,}: {prefill_s:.3f} s, "
+        f"{B * S / prefill_s:,.1f} tokens/s; {flops / 1e12:.1f} TFLOP, "
+        f"{mfu:.4f} of the bfloat16 peak; cache {kv:,} bytes (after a "
+        f"warm-up prefill of {B} x {warm:,} tokens, {warm_ms / 1e3:.3f} s)")
+    log(f"phase13 {lm['arch']} decode B={B}, {steps} steps to pos "
+        f"{cache['pos']:,}: step 0 {ms[0]:.3f} ms, steps 1-{steps - 1} "
+        f"{_ms_summary(ms[1:] or ms)} (CUDA events); wall "
+        f"{_ms_summary(walls[1:] or walls)}; bound {bms:.3f} ms ({by}: the "
+        f"float32 parameters and the cache once), {bms / med:.4f} of it; "
+        f"peak memory {peak if peak is None else f'{peak:,}'} bytes")
+    tok0, pos0 = last
+    idle_share(lambda: TT.serve_decode_step(model, dict(cache, pos=pos0),
+                                            tok0),
+               float(np.median(walls[1:] or walls)),
+               f"one {lm['arch']} decode step")
+    del cache, logits
+    return dict(prefill_s=prefill_s, warm_s=warm_ms / 1e3,
+                tokens_s=B * S / prefill_s, mfu=mfu,
+                decode_ms=med, decode_wall_ms=float(np.median(walls)),
+                bound_ms=bms, peak=peak, kv_bytes=kv)
+
+
+def lm_readings(lm: dict, B: int, S: int, device, seed=2) -> dict:
+    """Where 13a's and 13b's time goes, by CUDA events around one call each
+    (after one call not timed) on seeded inputs at the prefill's shapes:
+    one layer's ``gqa_attention`` (B x S queries in chunks of ``q_chunk``,
+    the plain float32 score tile of every chunk; a global layer, so the
+    whole S x S tile), one chunk's scores by ``f32_bmm``'s route and by
+    float32 upcasts, the float32 -> bfloat16 casts of every parameter a
+    decode step makes (each layer's weights at each use, and the tied
+    head), and for an MoE one layer's ``moe_ffn`` over the B x S tokens
+    beside its dispatch alone (the one-hot of the T x K assignments, its
+    cumsum and the positions' gather)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import f32_bmm, gqa_attention
+
+    cfg, model = lm["cfg"], lm["model"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt, Dh = cfg.dtype, cfg.head_dim
+
+    def timed(fn, *args):
+        """ms of one call by CUDA events, after one call not timed."""
+        fn(*args)
+        return _event_timed(fn, *args)[1]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dt)
+
+    q = rnd(B, S, cfg.n_heads, Dh)
+    k, v = rnd(B, S, cfg.n_kv_heads, Dh), rnd(B, S, cfg.n_kv_heads, Dh)
+    pos = torch.arange(S, device=device)
+    chunk = min(S, cfg.q_chunk)
+    attn_ms = timed(lambda: gqa_attention(
+        q, k, v, pos, pos, window=None,
+        q_chunk=cfg.q_chunk if S > cfg.q_chunk else None))
+    # one chunk's scores, (B * Hkv, rep * chunk, Dh) @ (B * Hkv, Dh, S),
+    # by the route f32_bmm takes and by float32 upcasts
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q[:, :chunk].reshape(B, chunk, cfg.n_kv_heads, rep, Dh) \
+        .permute(0, 2, 3, 1, 4).reshape(B * cfg.n_kv_heads, rep * chunk, Dh)
+    kt = k.permute(0, 2, 3, 1).reshape(B * cfg.n_kv_heads, Dh, S)
+    route_ms = timed(f32_bmm, qg, kt)
+    upcast_ms = timed(
+        lambda: torch.bmm(qg.to(torch.float32), kt.to(torch.float32)))
+    del q, k, v, qg, kt
+
+    def casts():
+        for p in model.parameters():
+            p.to(dt)
+        if cfg.tie_embeddings:
+            model.embed.T.to(dt)
+
+    cast_ms = timed(casts)
+    out = dict(attention_ms=attn_ms, cast_ms=cast_ms, scores_ms=route_ms,
+               scores_upcast_ms=upcast_ms)
+    # f32_bmm's choice for these operands (no gradient taken)
+    route = ("torch.bmm(out_dtype=float32)" if str(device).startswith("cuda")
+             and dt in (torch.bfloat16, torch.float16) else "float32 upcasts")
+    line = (f"phase13 {lm['arch']} readings: one layer's gqa_attention over "
+            f"{B} x {S:,} queries {attn_ms:.3f} ms (x {cfg.n_layers} layers "
+            f"{attn_ms * cfg.n_layers / 1e3:.3f} s); one chunk's scores "
+            f"({B * cfg.n_kv_heads} x {rep * chunk} x {Dh} by {Dh} x {S}) "
+            f"{route_ms:.3f} ms by f32_bmm's route, {route}, against "
+            f"{upcast_ms:.3f} ms by float32 upcasts; the float32 -> bfloat16 "
+            f"casts of a decode step {cast_ms:.3f} ms")
+    if cfg.moe is not None:
+        T, E, K = B * S, cfg.moe.n_experts, cfg.moe.top_k
+        lp = {k_: v_[0] for k_, v_ in model.params()["layers"].items()}
+        x = rnd(T, cfg.d_model)
+        moe_ms = timed(lambda: M.moe_ffn(x, lp, cfg.moe))
+        ids = torch.randint(0, E, (T * K,), generator=g, device=device)
+
+        def dispatch():
+            pos_all = torch.cumsum(F.one_hot(ids, E).to(torch.int32), dim=0,
+                                   dtype=torch.int32) - 1
+            return pos_all.gather(1, ids[:, None])
+
+        disp_ms = timed(dispatch)
+        out.update(moe_ms=moe_ms, dispatch_ms=disp_ms)
+        line += (f"; one layer's moe_ffn over {T:,} tokens {moe_ms:.3f} ms, "
+                 f"its dispatch's one-hot cumsum ({T * K:,} x {E}) "
+                 f"{disp_ms:.3f} ms of it")
+    log(line)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE dispatch of the port's transformer while the context is
+    open: (top-k expert ids sorted, the router logit gap between the K-th
+    and (K+1)-th expert) a call, in call order."""
+    import torch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as TT
+
+    calls, orig = [], TT.moe_ffn
+
+    def wrap(x, lp, moe):
+        lg = (x @ lp["router"].to(x.dtype)).to(torch.float32)
+        _, ids = M.top_k_desc(torch.softmax(lg, -1), moe.top_k)
+        top = torch.sort(lg, -1, descending=True).values
+        calls.append((torch.sort(ids, -1).values.cpu().numpy(),
+                      (top[:, moe.top_k - 1] - top[:, moe.top_k])
+                      .cpu().numpy()))
+        return orig(x, lp, moe)
+
+    TT.moe_ffn = wrap
+    try:
+        yield calls
+    finally:
+        TT.moe_ffn = orig
+
+
+def routes_apart(a: list, b: list, B: int) -> tuple:
+    """Two runs' dispatches, layer for layer (each run's calls of a layer
+    in token order, concatenated): the tokens (B, S) routed otherwise in
+    any layer and the largest of their two gaps."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} dispatches against {len(b)}")
+    other, worst = None, 0.0
+    for (ia, ga), (ib, gb) in zip(a, b):
+        if ia.shape != ib.shape:
+            raise AssertionError(f"dispatch of {ia.shape} against {ib.shape}")
+        diff = (ia != ib).any(-1)
+        other = diff if other is None else other | diff
+        if diff.any():
+            worst = max(worst, float(np.maximum(ga, gb)[diff].max()))
+    if other is None:
+        return None, 0.0
+    return other.reshape(B, -1), worst
+
+
+def _join_layers(L: int, B: int, *runs: list) -> list:
+    """Runs over consecutive token spans of B sequences (a forward; or a
+    prefill, then decode steps), their dispatches joined layer by layer:
+    a layer's calls (one, or one a group of ``moe_groups``) in token order,
+    then the runs' spans a sequence after another, so that each layer's
+    tokens come sequence-major as (B, positions)."""
+    if not runs[0]:
+        return []
+    out = []
+    for i in range(L):
+        ids, gaps = [], []
+        for r in runs:
+            per = len(r) // L
+            calls = r[i * per:(i + 1) * per]
+            ri = np.concatenate([c[0] for c in calls])
+            ids.append(ri.reshape(B, -1, ri.shape[-1]))
+            gaps.append(np.concatenate([c[1] for c in calls]).reshape(B, -1))
+        out.append((np.concatenate(ids, 1).reshape(-1, ids[0].shape[-1]),
+                    np.concatenate(gaps, 1).reshape(-1)))
+    return out
+
+
+def _reached(other, B: int, S: int):
+    """Positions (B, S) a token routed otherwise can reach: itself and
+    every later position of its sequence."""
+    if other is None:
+        return np.zeros((B, S), bool)
+    return np.cumsum(other.reshape(B, S), axis=1) > 0
+
+
+def _allclose(what: str, got, want, tol, keep=None) -> float:
+    """``got`` against ``want`` (tensors, any devices) at (rtol, atol) over
+    the rows ``keep`` (a (B,) or (B, S) mask of their leading dims):
+    raises if any entry is off; returns the largest difference kept."""
+    import torch
+
+    got = got.detach().to("cpu", torch.float32)
+    want = want.detach().to("cpu", torch.float32)
+    if keep is not None:
+        k = torch.as_tensor(keep)
+        got, want = got[k], want[k]
+    rtol, atol = tol
+    if got.numel() == 0:
+        return 0.0
+    off = (got - want).abs() > atol + rtol * want.abs()
+    if bool(off.any()):
+        raise AssertionError(
+            f"{what}: {int(off.sum())} of {off.numel()} entries off at rtol "
+            f"{rtol:g} atol {atol:g}, largest difference "
+            f"{float((got - want).abs().max()):.3g}")
+    return float((got - want).abs().max())
+
+
+def _near_tie_rows(what: str, a: list, b: list, B: int, S: int):
+    """The rows (B, S) that no token routed otherwise between two runs'
+    dispatches reaches; raises if a token routed otherwise at a router
+    gap of ROUTE_TIE or more.  Returns (rows, a note for the log)."""
+    other, worst = routes_apart(a, b, B)
+    if other is None or not other.any():
+        return np.ones((B, S), bool), ""
+    if worst >= ROUTE_TIE:
+        raise AssertionError(f"{what}: {int(other.sum())} tokens routed "
+                             f"otherwise, at router gaps up to {worst:.4g}")
+    keep = ~_reached(other, B, S)
+    return keep, (f"; {int(other.sum())} tokens routed otherwise at near "
+                  f"ties (gaps up to {worst:.4g}), {int((~keep).sum())} "
+                  f"rows left out")
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def lm_consistency(lm: dict, device, *, B, S, capacity_factor=None,
+                   seed=1) -> dict:
+    """13a / 13b: ``forward_train``'s logits at positions S-2 and S-1
+    against ``serve_prefill`` of the first S-1 tokens and one
+    ``serve_decode_step``, on the same parameters; an MoE at
+    ``capacity_factor``.
+
+    float32: the two within LM_TOL["float32"]; the rows a token routed
+    otherwise at a near tie reaches are left out (``_near_tie_rows``).
+    bfloat16: at 48 (16) layers the bfloat16 model parts from its own
+    float32 logits by more than LM_TOL["bfloat16"] (PERF.md §6: by up
+    to 0.10 for gemma3-12b and 0.20 for qwen3-moe-30b-a3b, a tenth of the
+    logits and more past 2e-2), so the two bfloat16 paths may part by no
+    more than the bfloat16 forward parts from the float32 forward; the
+    share of logits past LM_TOL["bfloat16"] is logged beside."""
+    import torch
+    from repro_torch.models import transformer as TT
+
+    params = lm["model"].params()
+    toks = lm_tokens(lm["cfg"], B, S, device, seed)
+    runs = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        kw = {"dtype": dt}
+        if capacity_factor is not None:
+            kw["moe"] = dataclasses.replace(lm["cfg"].moe,
+                                            capacity_factor=capacity_factor)
+        cfg = dataclasses.replace(lm["cfg"], **kw)
+        with recorded_routes() as fwd, torch.inference_mode():
+            full, _ = TT.forward_train(params, toks, cfg)
+            want = full[:, S - 2:].clone()
+            del full
+        with recorded_routes() as pre:
+            lg0, cache = TT.serve_prefill(params, toks[:, :S - 1], S, cfg)
+        with recorded_routes() as dec:
+            lg1, cache = TT.serve_decode_step(params, cache, toks[:, S - 1:],
+                                              cfg)
+        del cache
+        L = cfg.n_layers
+        runs[name] = (want, torch.stack([lg0, lg1], dim=1),
+                      _join_layers(L, B, fwd), _join_layers(L, B, pre, dec))
+    where = (f"phase13 {lm['arch']} consistency, B={B} S={S:,}"
+             + ("" if capacity_factor is None
+                else f" at capacity factor {capacity_factor:g}")
+             + f", logits at positions {S - 2:,} and {S - 1:,}, "
+             "forward_train against serve_prefill + one decode step")
+    want, got, rf, rs = runs["float32"]
+    keep, note = _near_tie_rows(f"{lm['arch']} float32", rf, rs, B, S)
+    d32 = _allclose(f"{lm['arch']} float32 forward vs prefill + decode",
+                    got, want, LM_TOL["float32"], keep[:, S - 2:])
+    log(f"{where}: float32 largest difference {d32:.3g} (rtol "
+        f"{LM_TOL['float32'][0]:g} atol {LM_TOL['float32'][1]:g}){note}")
+    want16, got16, rf, rs = runs["bfloat16"]
+    d16 = _max_diff(got16, want16)
+    own = _max_diff(want16, want)
+    rtol, atol = LM_TOL["bfloat16"]
+    past = int(((got16.float() - want16.float()).abs()
+                > atol + rtol * want16.float().abs()).sum())
+    past_own = int(((want16.float() - want).abs()
+                    > atol + rtol * want.abs()).sum())
+    other, _ = routes_apart(rf, rs, B)
+    log(f"{where}: bfloat16 largest difference {d16:.3g}, against the "
+        f"bfloat16 forward's own {own:.3g} from the float32 forward; past "
+        f"rtol {rtol:g} atol {atol:g}: {past:,} of {got16.numel():,} "
+        f"logits (the bfloat16 forward against the float32 one: "
+        f"{past_own:,}); tokens routed otherwise between the bfloat16 "
+        f"paths: {0 if other is None else int(other.sum())}")
+    if not d16 <= own:
+        raise AssertionError(
+            f"{lm['arch']} bfloat16: forward and prefill + decode part by "
+            f"{d16:.3g}, more than the bfloat16 forward parts from the "
+            f"float32 one ({own:.3g})")
+    return {"float32": d32, "bfloat16": d16, "bfloat16_own": own,
+            "bfloat16_past": past}
+
+
+def _lm_runs(params, cfg, toks, P: int, steps: int):
+    """Everything 13c compares, from one device: forward_train's logits and
+    aux, the prefill of the first P tokens, ``steps`` decode steps (logits
+    and the cache after), embed_sequences; each run's MoE dispatches."""
+    import torch
+    from repro_torch.models import transformer as TT
+
+    r = {}
+    with recorded_routes() as r["fwd_routes"], torch.inference_mode():
+        r["logits"], r["aux"] = TT.forward_train(params, toks, cfg)
+    with recorded_routes() as pre:
+        lg, cache = TT.serve_prefill(params, toks[:, :P], P + steps, cfg)
+    dec_logits, decs = [lg], []
+    for t in range(P, P + steps):
+        with recorded_routes() as d:
+            lg, cache = TT.serve_decode_step(params, cache,
+                                             toks[:, t:t + 1], cfg)
+        decs.append(d)
+        dec_logits.append(lg)
+    r["serve_logits"] = torch.stack(dec_logits, dim=1)  # (B, 1 + steps, V)
+    r["cache"] = cache
+    B, L = toks.shape[0], cfg.n_layers
+    r["serve_routes"] = _join_layers(L, B, pre, *decs)
+    r["fwd_routes"] = _join_layers(L, B, r["fwd_routes"])
+    with recorded_routes() as embed:
+        r["embed"] = TT.embed_sequences(params, toks, cfg)
+    r["embed_routes"] = _join_layers(L, B, embed)
+    return r
+
+
+def lm_reduced_check(arch: str, device, *, dtype: str, moe_groups=1,
+                     B=LM_REDUCED["B"], S=LM_REDUCED["S"],
+                     P=LM_REDUCED["prompt"], steps=LM_REDUCED["decode"],
+                     seed=0) -> dict:
+    """13c for one reduced config: the same weights (made on the CPU with
+    a torch.Generator seeded ``seed``, copied to ``device``) and seeded
+    tokens through both devices; forward_train's logits and aux, the
+    prefill of P tokens and ``steps`` decode steps (their logits and the
+    cache after, ``pos`` included), embed_sequences; in float32 also
+    loss_fn and every gradient (labels the next tokens, the last -1).
+    Tolerances LM_REDUCED_TOL; what a token routed otherwise at a near tie
+    reaches is left out (``_near_tie_rows``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as TT
+    from repro_torch.train import tree as T
+
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dt,
+                              moe_groups=moe_groups)
+    host = TT.init_params(cfg, torch.Generator().manual_seed(seed),
+                          "cpu").params()
+    toks = lm_tokens(cfg, B, S, "cpu", seed)
+    runs = {dev: _lm_runs(_clone_tree(host, dev), cfg, toks.to(dev), P,
+                          steps)
+            for dev in ("cpu", device)}
+    a, b = runs[device], runs["cpu"]
+    tol = LM_REDUCED_TOL[dtype]
+    what = f"{arch} {dtype}" + (f" moe_groups={moe_groups}"
+                                if moe_groups > 1 else "")
+    near = []
+
+    def keep_of(ra, rb, n):
+        keep, note = _near_tie_rows(what, ra, rb, B, n)
+        if note:
+            near.append(int((~keep).sum()))
+        return keep
+
+    k = keep_of(a["fwd_routes"], b["fwd_routes"], S)
+    diffs = {"logits": _allclose(f"{what} forward logits", a["logits"],
+                                 b["logits"], tol, k)}
+    if k.all():
+        diffs["aux"] = _allclose(f"{what} aux", torch.as_tensor(a["aux"]),
+                                 torch.as_tensor(b["aux"]), tol)
+    k = keep_of(a["serve_routes"], b["serve_routes"], P + steps)
+    diffs["serve_logits"] = _allclose(f"{what} prefill + decode logits",
+                                      a["serve_logits"], b["serve_logits"],
+                                      tol, k[:, P - 1:])
+    if a["cache"]["pos"] != b["cache"]["pos"] or a["cache"]["pos"] != P + steps:
+        raise AssertionError(f"{what}: cache pos {a['cache']['pos']}")
+    for i in range(cfg.n_layers):
+        cl = a["cache"]["k"][i].shape[1]
+        if cfg.layer_window(i) is None:
+            pos = np.where(np.arange(cl) < P + steps, np.arange(cl), -1)
+        else:
+            pos = TT._ring_slot_positions(cl, P + steps).numpy()
+        kc = k[:, np.clip(pos, 0, None)] | (pos < 0)[None]
+        for kv in ("k", "v"):
+            diffs[f"{kv}[{i}]"] = _allclose(
+                f"{what} cache {kv}[{i}]", a["cache"][kv][i],
+                b["cache"][kv][i], tol, kc)
+    k = keep_of(a["embed_routes"], b["embed_routes"], S)
+    diffs["embed"] = _allclose(f"{what} embed_sequences", a["embed"],
+                               b["embed"], tol, k.all(axis=1))
+    if dtype == "float32":
+        labels = torch.cat([toks[:, 1:], torch.full((B, 1), -1,
+                                                    dtype=toks.dtype)], 1)
+        grads = {}
+        for dev in ("cpu", device):
+            views = T.tree_map(lambda p: p.requires_grad_(),
+                               _clone_tree(host, dev))
+            with torch.enable_grad():
+                loss, _ = TT.loss_fn(views, {"tokens": toks.to(dev),
+                                             "labels": labels.to(dev)}, cfg)
+                g = torch.autograd.grad(loss, T.leaves(views))
+            grads[dev] = (loss.detach(), g)
+        diffs["loss"] = _allclose(f"{what} loss", grads[device][0],
+                                  grads["cpu"][0], tol)
+        diffs["grad"] = max(
+            _allclose(f"{what} grad {T.key_of(path)}", ga, gb, tol)
+            for (path, _), ga, gb in zip(T.leaves_with_path(host),
+                                         grads[device][1], grads["cpu"][1]))
+    worst = max(diffs.values())
+    log(f"phase13c {what}: card vs CPU, forward, prefill + {steps} decode "
+        f"steps with the caches, embed_sequences"
+        + (", loss and every gradient" if dtype == "float32" else "")
+        + f": largest difference {worst:.3g} (rtol {tol[0]:g} atol "
+        f"{tol[1]:g})"
+        + (f"; rows left out after near-tie routes: {near}" if near else ""))
+    return dict(worst=worst, near=near)
+
+
+def lm_reduced_phase(device) -> list:
+    """13c: the five reduced LM configs, card against CPU, in float32 and
+    bfloat16, and the reduced qwen3 at moe_groups=2."""
+    from repro_torch.configs import get_arch, list_archs
+
+    out = []
+    for arch in list_archs():
+        if get_arch(arch).family != "lm":
+            continue
+        for dtype in ("float32", "bfloat16"):
+            out.append(lm_reduced_check(arch, device, dtype=dtype))
+    for dtype in ("float32", "bfloat16"):
+        out.append(lm_reduced_check("qwen3-moe-30b-a3b", device, dtype=dtype,
+                                    moe_groups=2))
+    return out
+
+
+def served_phase(spec: dict, device, steps: int = LM_DECODE) -> dict:
+    """13a or 13b for one LM_SERVED spec in this process: ``lm_setup`` (the
+    published config cut to ``layers``, or its ``reduced()`` one where the
+    spec says ``reduced``), ``lm_serve_phase``, ``lm_readings`` and
+    ``lm_consistency``; the numbers of each."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(spec["arch"]).reduced() if spec.get("reduced") else None
+    lm = lm_setup(spec["arch"], device, layers=spec.get("layers"), cfg=cfg)
+    r = lm_serve_phase(lm, spec["B"], spec["S"], device, steps=steps)
+    r["readings"] = lm_readings(lm, spec["B"], spec["S"], device)
+    r["consistency"] = lm_consistency(lm, device, **spec["check"])
+    r.update(init_s=lm["init_s"], param_bytes=lm["param_bytes"],
+             allocated=lm["allocated"])
+    return r
+
+
+RESULT = "phase13-result "          # the line a served child prints last
+
+
+def served_in_child(spec: dict, device, steps: int = LM_DECODE) -> dict:
+    """``served_phase`` in a process of its own (``python -c``), its log
+    relayed line by line: a fresh CUDA context.  In one process, after
+    phases 2-12 and gemma3-12b's 13a, the caching allocator kept the 76 GiB
+    it had reserved through ``empty_cache()``, and qwen3's first 12 GiB
+    expert stack found 0.7 GiB free (NVIDIA H100 80GB HBM3, PERF.md §6)."""
+    code = ("import json, chip_smoke as cs; "
+            f"r = cs.served_phase(json.loads({json.dumps(json.dumps(spec))}), "
+            f"{device!r}, {steps}); print(cs.RESULT + json.dumps(r))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=900, cwd=ROOT, env=env)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(RESULT):
+            result = json.loads(line[len(RESULT):])
+        else:
+            log(line)
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"phase13 {spec['arch']} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return result
+
+
+def lm_phase(device, *, served=LM_SERVED, steps=LM_DECODE, launcher=None,
+             tmp=None) -> dict:
+    """Phase 13 (13a-13d): each LM_SERVED model at its published width in
+    a process of its own (``served_in_child``), one after the other; the
+    reduced configs card against CPU; the launcher on the reduced qwen3
+    (LAUNCH_LM, or ``launcher``) failing and resuming."""
+    import tempfile
+
+    out = {spec["arch"]: served_in_child(spec, device, steps)
+           for spec in served}
+    out["reduced"] = lm_reduced_phase(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as t:
+        out["launcher"] = train_launcher_phase(
+            device, tmp or t, tag="phase13d", **(launcher or LAUNCH_LM))
+    return out
 
 
 def main(argv=None) -> int:
@@ -4516,6 +5181,12 @@ def main(argv=None) -> int:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    # phase 13 first, in processes of its own, while the card holds
+    # nothing: after phase 12 this process kept about 47 GB of the card
+    # that empty_cache() did not return (PERF.md §6)
+    lm_phase(device)
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 13 done")
 
     # phase 2
     checks, host_loop = phase2(device, args.n, args.queries)

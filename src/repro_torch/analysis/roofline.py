@@ -25,6 +25,8 @@ import numpy as np
 # H100 SXM, one card: vendor figures, not measurements
 PEAK_FLOPS = 67e12           # float32 outside the tensor cores: what the
                              # port's kernels and its TF32-off towers use
+PEAK_FLOPS_BF16 = 989.4e12   # dense bfloat16 on the tensor cores: what the
+                             # LMs' bfloat16 products can reach
 HBM_BW = 3.35e12             # HBM3, bytes/s
 LINK_BW = 450e9              # NVLink 4, bytes/s in each direction
 # the names chip_smoke.py's kernel bounds read

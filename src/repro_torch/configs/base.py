@@ -1,6 +1,6 @@
 """Config system: one ArchSpec per assigned architecture, ported from
-``src/repro/configs/base.py`` (``ShapeCell``, ``ArchSpec`` and the recsys
-shapes; the LM and GNN shapes wait for their slices).
+``src/repro/configs/base.py`` (``ShapeCell``, ``ArchSpec``, the LM and
+recsys shapes; the GNN shapes wait for their slice).
 
 An ArchSpec bundles the model config, the architecture family (which picks
 the train/serve step implementations), the assigned input shapes, and a
@@ -50,6 +50,13 @@ class ArchSpec:
             return self.model
         return dataclasses.replace(self.model, **ov)
 
+
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeCell("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeCell("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeCell("long_500k", "long_decode", dict(seq_len=524288, global_batch=1)),
+)
 
 RECSYS_SHAPES = (
     ShapeCell("train_batch", "recsys_train", dict(batch=65536)),

@@ -8,7 +8,9 @@ codes whatever their encoders do; :func:`sharded_from_numpy` turns a
 ``ShardedDEG``'s stacked arrays and per-shard indexes into the port's, so
 both packages search the same sub-DEGs; :func:`recsys_model_from_numpy`
 turns a recsys parameter dict into a ``RecsysModel`` with the same
-weights, and :func:`opt_state_from_numpy` an optimizer state of
+weights, :func:`lm_model_from_numpy` does the same for an LM's parameter
+dict (a ``TransformerModel``) and :func:`lm_cache_from_numpy` for its KV
+cache, and :func:`opt_state_from_numpy` an optimizer state of
 ``repro.train.optimizer`` into the port's, so both packages take the same
 train steps.  The ``*_to_numpy`` functions bring the port's tensors back, so
 tests compare with ``np.testing`` and never tensor against array.
@@ -28,6 +30,7 @@ from repro_torch.core.graph import DEGraph, GraphBuilder
 from repro_torch.core.search import SearchResult
 from repro_torch.distributed.index import ShardedDEG
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
+from repro_torch.models.transformer import TransformerConfig, TransformerModel
 from repro_torch.quant.store import VectorStore
 from repro_torch.train.tree import tree_map
 
@@ -134,6 +137,43 @@ def recsys_model_from_numpy(params: dict, cfg: RecsysConfig,
         name: ({k: t(x) for k, x in v.items()} if isinstance(v, dict)
                else t(v))
         for name, v in params.items()})
+
+
+def lm_model_from_numpy(params: dict, cfg: TransformerConfig,
+                        device="cuda") -> TransformerModel:
+    """A ``TransformerModel`` holding the JAX package's LM parameters
+    (``init_params``' nested dict with the stacked ``layers``, leaves as
+    numpy arrays) as float32 tensors on ``device``, frozen."""
+    def t(v):
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    return TransformerModel(cfg, {
+        name: ({k: t(x) for k, x in v.items()} if isinstance(v, dict)
+               else t(v))
+        for name, v in params.items()})
+
+
+def lm_cache_from_numpy(cache: dict, dtype=torch.bfloat16,
+                        device="cuda") -> dict:
+    """A JAX LM cache (``k`` and ``v`` lists of (B, slots, Hkv, Dh)
+    arrays, ``pos`` a scalar) as the port's: tensors of ``dtype`` (the
+    config's; bfloat16 values pass through float32 exactly) and ``pos`` a
+    host int."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device).to(dtype)
+
+    return {"k": [t(a) for a in cache["k"]], "v": [t(a) for a in cache["v"]],
+            "pos": int(np.asarray(cache["pos"]))}
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The port's LM cache as numpy: ``k`` and ``v`` as float32 arrays (a
+    bfloat16 value exactly), ``pos`` as JAX's int32 scalar."""
+    def a(x):
+        return x.detach().to(torch.float32).cpu().numpy()
+
+    return {"k": [a(x) for x in cache["k"]], "v": [a(x) for x in cache["v"]],
+            "pos": np.int32(cache["pos"])}
 
 
 def opt_state_from_numpy(state, device="cuda"):

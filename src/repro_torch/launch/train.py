@@ -1,10 +1,11 @@
 """Training launcher, ported from ``src/repro/launch/train.py``:
 ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Runs a REDUCED recsys config end to end (checkpoints, resume, failure
-injection, deterministic data replay) on the card unless ``--device cpu``
-is given.  The port trains the recsys family only: the LM and GNN
-architectures of the JAX registry come with their models (ROADMAP A12).
+Runs a REDUCED LM or recsys config end to end (checkpoints, resume,
+failure injection, deterministic data replay) on the card unless
+``--device cpu`` is given; an LM trains on ``lm_synthetic_batch_fn``'s
+stream at ``--seq`` tokens a sequence.  EGNN, the JAX registry's GNN,
+comes with its model (ROADMAP A12).
 
 :func:`train_batch_trainer` builds the ``train_batch`` cell at a model's
 published width: the MLPerf optimizer split of the JAX package's
@@ -18,11 +19,7 @@ import time
 
 # the JAX registry's architectures whose families the port does not train
 # yet, with the ROADMAP item that ports them
-_NOT_PORTED = {
-    **dict.fromkeys(("phi3-mini-3.8b", "granite-3-2b", "gemma3-12b",
-                     "qwen3-moe-30b-a3b", "mixtral-8x22b"), "lm"),
-    "egnn": "gnn",
-}
+_NOT_PORTED = {"egnn": "gnn"}
 
 
 def _spec(arch: str):
@@ -32,7 +29,7 @@ def _spec(arch: str):
     if family is not None:
         raise ValueError(
             f"{arch!r} is of the {family} family, which the port does not "
-            "train yet (ROADMAP A12: the LM, MoE and EGNN models)")
+            "train yet (ROADMAP A12: the EGNN model)")
     return get_arch(arch)
 
 
@@ -88,15 +85,38 @@ def _recsys_trainer(cfg, opt, batch: int, seed: int, device,
     return step, params, opt.init(params), batch_fn
 
 
-def build_reduced_trainer(arch: str, batch: int, seed: int = 0,
-                          device="cuda", microbatches: int = 1):
-    """(step, params, opt_state, batch_fn) of the reduced config of a
-    recsys ``arch`` under AdamW with a cosine schedule.  ``batch_fn``
-    makes each batch when it is asked for and keeps none."""
+def _lm_trainer(cfg, opt, batch: int, seq: int, seed: int, device,
+                microbatches: int = 1):
+    import torch
+
+    from repro_torch.data.pipeline import lm_synthetic_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.recsys import as_tensors
+    from repro_torch.train.steps import make_train_step
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = T.init_params(cfg, gen, device).params()
+    step = make_train_step(lambda p, b: T.loss_fn(p, b, cfg), opt,
+                           microbatches)
+    stream = lm_synthetic_batch_fn(cfg.vocab, batch, seq, seed)
+    return step, params, opt.init(params), \
+        lambda s: as_tensors(stream(s), device)
+
+
+def build_reduced_trainer(arch: str, batch: int, seq: int = 64,
+                          seed: int = 0, device="cuda",
+                          microbatches: int = 1):
+    """(step, params, opt_state, batch_fn) of the reduced config of an LM
+    or recsys ``arch`` under AdamW with a cosine schedule; an LM's batches
+    hold ``batch`` sequences of ``seq`` tokens.  ``batch_fn`` makes each
+    batch when it is asked for and keeps none."""
     from repro_torch.train.optimizer import adamw, cosine_schedule
 
-    cfg = _spec(arch).reduced()
+    spec = _spec(arch)
+    cfg = spec.reduced()
     opt = adamw(cosine_schedule(3e-3, warmup=20, total=500))
+    if spec.family == "lm":
+        return _lm_trainer(cfg, opt, batch, seq, seed, device, microbatches)
     return _recsys_trainer(cfg, opt, batch, seed, device, microbatches)
 
 
@@ -122,6 +142,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a sequence (LM archs)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--fail-at", type=int, default=None)
@@ -133,7 +155,7 @@ def main(argv=None) -> None:
     from repro_torch.train.loop import LoopConfig, train_loop
 
     step, params, opt_state, batch_fn = build_reduced_trainer(
-        args.arch, args.batch, device=args.device,
+        args.arch, args.batch, args.seq, device=args.device,
         microbatches=args.microbatches)
     cfg = LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                      ckpt_every=args.ckpt_every, fail_at=args.fail_at)

@@ -38,11 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.models.embedding_bag import (embedding_bag_fixed,
                                               stack_vocab_offsets)
-from repro_torch.models.layers import apply_mlp_tower, dense_init, mlp_tower
+from repro_torch.models.layers import (ParamTree, apply_mlp_tower,
+                                      dense_init, mlp_tower)
 
 INVALID = -1
 
@@ -103,34 +103,12 @@ class RecsysConfig:
         raise ValueError(self.kind)
 
 
-class RecsysModel(nn.Module):
+class RecsysModel(ParamTree):
     """The parameters of one recsys model under the JAX dict's names:
     tensors as frozen parameters, towers as ``nn.ParameterDict``s."""
 
-    def __init__(self, cfg: RecsysConfig, params: dict):
-        super().__init__()
-        self.cfg = cfg
-
-        def param(t):
-            return nn.Parameter(t, requires_grad=False)
-
-        for name, value in params.items():
-            if isinstance(value, dict):
-                value = nn.ParameterDict({k: param(v)
-                                          for k, v in value.items()})
-            else:
-                value = param(value)
-            setattr(self, name, value)
-
     def forward(self, batch: dict) -> torch.Tensor:
         return forward(self, batch)
-
-    def params(self) -> dict:
-        """The parameters as the JAX package's nested dict (the same
-        tensors: an in-place update of a leaf updates the model)."""
-        return {name: (dict(m.items()) if isinstance(m, nn.ParameterDict)
-                       else m)
-                for name, m in {**self._parameters, **self._modules}.items()}
 
 
 # --------------------------------------------------------------------------
