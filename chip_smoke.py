@@ -17,7 +17,8 @@ bags through the bag_lookup kernel, and train both at the train_batch
 cell's width, DIN's bag gradient through the bag_lookup_bwd kernel; and,
 first of all, serve the LMs gemma3-12b and qwen3-moe-30b-a3b at their
 published widths and hold the five reduced LMs on the card against the
-CPU.
+CPU, then train EGNN on minibatch_lg's Reddit-sized graph and run its
+forward over ogb_products' whole graph.
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
     python3 chip_smoke.py --n 20000  # a smaller build (a cut of n only)
@@ -290,7 +291,43 @@ Phases (any failure raises and exits non-zero):
      --steps 60 --batch 16 --seq 64 --ckpt-every 20 --fail-at 30 as a
      subprocess exits non-zero; its rerun resumes and prints a final loss
      below its first;
-  14. the kernels' JSON line (the ten kernel rows: phase 13 launches
+  14. (right after phase 13's children, in a child process of its own)
+     the EGNN family, no kernel on its path, weights from init_params (a
+     torch.Generator seeded 0 on the card):
+     14a. minibatch_lg at Reddit's size: random_power_law_graph(232_965,
+     492)'s distribution drawn on the card (power_law_on_device: about
+     114.6 M edges, a 458 MB col_idx; the numpy generator takes about a
+     minute on the host), 602 normal features a node (561 MB), 41 uniform
+     classes; launch.train.gnn_trainer under adamw(1e-3), 1,024 seeds a
+     step sampled on the card at fanouts (15, 10) (169,984 nodes, 168,960
+     edges, a 409 MB feature gather); the sampler's and a batch's ms by
+     CUDA events; GNN_STEPS steps: ms a step, seeds/s, peak bytes, the idle
+     share of a step, the model flops over the float32 peak;
+     14b. full_graph_sm (2,708 nodes, a geometric graph's edges cut to
+     10,556, 1,433 features, 7 classes) and molecule (128 graphs of 30
+     nodes and 64 edges through egnn_forward_batched): ms a step and peak
+     bytes; card against CPU on the same weights and batch at those widths
+     and at reduced() on both layouts: logits, coordinates, loss and every
+     gradient, float32 at rtol 1e-4 atol 1e-5, bfloat16 at 2e-2 (or no
+     farther apart than the card's bfloat16 result is from its float32 one);
+     14c. one minibatch_lg batch's loss and gradients twice, and one step
+     twice, torch.equal; train_loop with a checkpoint every 5 steps and a
+     failure after step 7, resumed torch.equal to 14a's run; python -m
+     repro_torch.launch.train --arch egnn --steps 60 --batch 256
+     --ckpt-every 20 --fail-at 30 as a subprocess exits non-zero, its rerun
+     resumes and ends below its first loss (at batch 16 one batch's noise
+     outweighs 60 steps);
+     14d. the halo loss on full_graph_sm: at world size 1 (NCCL)
+     make_sharded_loss torch.equal to loss_fn, loss and gradients; four
+     gloo ranks on the one card (the (2, 2) debug mesh), their losses equal
+     to each other's, loss and gradients against loss_fn at rtol 1e-5 and
+     rtol 1e-4 atol 1e-6; per rank the ms of a step and of its collectives;
+     14e. ogb_products at its full size (2,449,029 nodes, 61,859,140
+     edges, 100 features, 47 classes): egnn_forward and node_embeddings
+     under inference_mode (s, peak bytes, the share of the float32 peak),
+     every output finite, the decoder over the embeddings torch.equal to
+     the logits; every launch counter 0 after the phase;
+  15. the kernels' JSON line (the ten kernel rows: phases 13 and 14 launch
      none), then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
@@ -422,6 +459,22 @@ LM_REDUCED = dict(B=2, S=40, prompt=12, decode=4)  # 13c: S past q_chunk 32
 ROUTE_TIE = 1 / 32
 LAUNCH_LM = dict(arch="qwen3-moe-30b-a3b", steps=60, fail_at=30, batch=16,
                  seq=64, ckpt_every=20)
+# phase 14: the EGNN family, weights from init_params (a torch.Generator
+# seeded 0 on the card).  14a: minibatch_lg at Reddit's size, the graph of
+# random_power_law_graph(232_965, 492) drawn on the card
+REDDIT_DEGREE = 492
+GNN_STEPS = 12                     # 14a's train steps; 14c resumes to them
+GNN_CKPT_EVERY, GNN_FAIL_AT = 5, 7   # 14c: checkpoints at 0 and 5
+GNN_SMALL_STEPS = 10               # 14b: full_graph_sm and molecule steps
+GNN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}  # 14b
+HALO_MESH = (2, 2)                 # 14d: the debug mesh (data, model)
+HALO_TOL = {"loss": 1e-5, "grad": (1e-4, 1e-6)}
+HALO_REPS = 5                      # 14d: timed steps a rank
+# 14c: launch.train on the reduced EGNN; at batch 16 one batch's NLL noise
+# is larger than what 60 steps learn (the card's run: first 1.5035, final
+# 1.5138), as 12d found for DIN
+LAUNCH_GNN = dict(arch="egnn", steps=60, fail_at=30, batch=256,
+                  ckpt_every=20)
 
 KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
@@ -5151,6 +5204,717 @@ def lm_phase(device, *, served=LM_SERVED, steps=LM_DECODE, launcher=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the EGNN family (minibatch_lg training, full_graph_sm and
+# molecule, determinism and resume, the halo loss, ogb_products' forward)
+# ---------------------------------------------------------------------------
+def power_law_on_device(n: int, avg_degree: int, device, *, seed=0,
+                        n_edges=None, alpha=1.6):
+    """``data.graphs.random_power_law_graph``'s distribution drawn on
+    ``device`` with torch (the numpy generator takes about a minute on the
+    host at minibatch_lg's 114.6 M edges): Pareto(alpha) weights,
+    ``n * avg_degree`` sources drawn by them (the inverse of their CDF),
+    uniform destinations, self-loops dropped, the first ``n_edges`` kept
+    where given, sorted by source with a stable sort.  Returns
+    (GraphTensors, the sorted sources int64)."""
+    import torch
+    from repro_torch.data.graphs import GraphTensors
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(n, generator=gen, device=device, dtype=torch.float64)
+    w = (1.0 - u).pow_(-1.0 / alpha)          # numpy's pareto(alpha) + 1
+    cdf = torch.cumsum(w / w.sum(), 0)
+    del u, w
+    m = n * avg_degree
+    src = torch.searchsorted(cdf, torch.rand(m, generator=gen, device=device,
+                                             dtype=torch.float64),
+                             right=True).clamp_(max=n - 1)
+    dst = torch.randint(0, n, (m,), generator=gen, device=device)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    del keep, cdf
+    if n_edges is not None:
+        if src.shape[0] < n_edges:
+            raise AssertionError(f"{src.shape[0]:,} edges drawn for "
+                                 f"{n_edges:,}")
+        src, dst = src[:n_edges], dst[:n_edges]
+    src, order = torch.sort(src, stable=True)
+    col = dst[order].to(torch.int32)
+    del dst, order
+    deg = torch.bincount(src, minlength=n)
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    torch.cumsum(deg, 0, out=row_ptr[1:])
+    return GraphTensors(row_ptr=row_ptr, col_idx=col, deg=deg,
+                        n_nodes=n), src
+
+
+def _bytes(n) -> str:
+    return "not measured" if n is None else f"{n:,} bytes"
+
+
+def gnn_minibatch_setup(device, *, n_nodes=None, avg_degree=REDDIT_DEGREE,
+                        batch_nodes=None, fanouts=None, seed=0) -> dict:
+    """14a's set-up: minibatch_lg's graph (``power_law_on_device`` at
+    Reddit's nodes and ``avg_degree``, or ``n_nodes``), normal features of
+    the cell's width, uniform labels of its classes and normal
+    coordinates on the card, and ``launch.train.gnn_trainer`` for the
+    cell's config under ``adamw(1e-3)`` (as the JAX package's
+    ``_egnn_train_full`` sets it) at its batch and fanouts."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import gnn_trainer
+    from repro_torch.train.optimizer import adamw
+
+    spec = get_arch("egnn")
+    cell = spec.cell("minibatch_lg")
+    cfg = spec.model_for("minibatch_lg")
+    n = n_nodes or cell["n_nodes"]
+    B = batch_nodes or cell["batch_nodes"]
+    fanouts = tuple(fanouts or cell["fanouts"])
+    t0 = time.perf_counter()
+    g, src = power_law_on_device(n, avg_degree, device, seed=seed)
+    del src
+    sync()
+    graph_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    feats = torch.randn(n, cfg.d_feat, generator=gen, device=device)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen,
+                           device=device, dtype=torch.int32)
+    coords = torch.randn(n, 3, generator=gen, device=device)
+    step, params, state, batch_fn = gnn_trainer(
+        cfg, adamw(1e-3), g, feats, labels, coords, B, fanouts, seed)
+    sync()
+    log(f"phase14a minibatch_lg graph: {n:,} nodes, {g.n_edges:,} edges "
+        f"(largest out-degree {int(g.deg.max()):,}) drawn on the card in "
+        f"{graph_s:.3f} s; col_idx {g.col_idx.numel() * 4:,} bytes, "
+        f"features {feats.numel() * 4:,} bytes ({n:,} x {cfg.d_feat}), "
+        f"{cfg.n_classes} classes; batch {B} seeds at fanouts {fanouts}")
+    return dict(cfg=cfg, graph=g, B=B, fanouts=fanouts, step=step,
+                params=params, state=state, batch_fn=batch_fn,
+                init=(_clone_tree(params), _clone_tree(state)),
+                graph_s=graph_s, n_edges=g.n_edges)
+
+
+def gnn_train_phase(tr: dict, device, *, steps=GNN_STEPS) -> dict:
+    """14a: the sampler alone and a whole batch (sampler and gathers) by
+    CUDA events; ``steps`` train steps (ms a step by CUDA events, the
+    median of steps 1 on, seeds/s, peak bytes of step 1, the idle share
+    of one step on a copy, the model flops over the float32 peak), every
+    loss finite.  Keeps the final parameters and state in ``tr``."""
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.data.graphs import sample_neighbors, subgraph_shapes
+
+    g, B, fanouts, cfg = tr["graph"], tr["B"], tr["fanouts"], tr["cfg"]
+    n_sub, e_sub = subgraph_shapes(B, fanouts)
+    seeds = torch.randint(0, g.n_nodes, (B,), device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(99))
+
+    def sample():
+        gen = torch.Generator(device=device).manual_seed(0)
+        return sample_neighbors(g.row_ptr, g.col_idx, g.deg, seeds, gen,
+                                fanouts)
+
+    nodes, edges = sample()
+    if tuple(nodes.shape) != (n_sub,) or tuple(edges.shape) != (2, e_sub):
+        raise AssertionError(f"phase14a: subgraph {tuple(nodes.shape)} "
+                             f"{tuple(edges.shape)}, want {n_sub} / {e_sub}")
+    sampler_ms = float(np.median([_event_timed(sample)[1]
+                                  for _ in range(5)]))
+    batch_ms = float(np.median([_event_timed(tr["batch_fn"], s)[1]
+                                for s in range(3)]))
+    step, params, state = tr["step"], tr["params"], tr["state"]
+    losses, ms, peak = [], [], None
+    for s in range(steps):
+        b = tr["batch_fn"](s)
+        if s == 1:
+            peak_memory(reset=True)
+        ((params, state), m), dev_ms = _event_timed(step, params, state, b)
+        if s == 1:
+            peak = peak_memory()
+        loss = float(m["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"phase14a step {s}: loss {loss}")
+        losses.append(loss)
+        ms.append(dev_ms)
+    tr["params"], tr["state"] = params, state
+    steady = ms[1:] or ms
+    med = float(np.median(steady))
+    flops = roofline.egnn_model_flops(cfg, n_sub, e_sub, True)
+    share = flops / roofline.PEAK_FLOPS / (med / 1e3)
+    log(f"phase14a sampler: {n_sub:,} nodes and {e_sub:,} edges from {B} "
+        f"seeds in {sampler_ms:.3f} ms (CUDA events, median of 5); a "
+        f"whole batch with its {n_sub * cfg.d_feat * 4:,}-byte feature "
+        f"gather {batch_ms:.3f} ms")
+    log(f"phase14a minibatch_lg train: losses "
+        f"{[round(x, 6) for x in losses]}")
+    log(f"phase14a minibatch_lg train: step 0 {ms[0]:.3f} ms, steps 1-"
+        f"{steps - 1} {_ms_summary(steady)} a step (CUDA events), "
+        f"{B / med * 1e3:,.1f} seeds/s; peak memory of step 1 "
+        f"{_bytes(peak)}; "
+        f"{flops / 1e9:.1f} GFLOP a step, "
+        f"{flops / roofline.PEAK_FLOPS * 1e3:.3f} ms at the float32 peak "
+        f"({share:.4f} of it)")
+    p2, s2 = _clone_tree(params), _clone_tree(state)
+    b0 = tr["batch_fn"](0)
+    idle_share(lambda: step(p2, s2, b0), med,
+               "one minibatch_lg train step")
+    del p2, s2, b0
+    return dict(sampler_ms=sampler_ms, batch_ms=batch_ms, step0_ms=ms[0],
+                step_ms=med, seeds_s=B / med * 1e3, peak=peak, flops=flops,
+                fp32_share=share, losses=losses, graph_s=tr["graph_s"],
+                n_edges=tr["n_edges"])
+
+
+def gnn_loss_grads(loss, params, batch):
+    """(loss, gradients as a list in pytree order) of ``loss(params,
+    batch)``, through views of ``params``."""
+    import torch
+    from repro_torch.train import tree as T
+
+    views = T.tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        value, _ = loss(views, batch)
+        grads = torch.autograd.grad(value, T.leaves(views))
+    return value.detach(), list(grads)
+
+
+def gnn_determinism(tr: dict) -> None:
+    """14c: one minibatch_lg batch's loss and gradients from the initial
+    parameters twice, and one whole step from the same state twice:
+    torch.equal."""
+    import torch
+    from repro_torch.models import egnn as E
+
+    b = tr["batch_fn"](0)
+    runs = [gnn_loss_grads(lambda p, x: E.loss_fn(p, x, tr["cfg"]),
+                           tr["init"][0], b) for _ in range(2)]
+    (l0, g0), (l1, g1) = runs
+    if not torch.equal(l0, l1) or not all(
+            torch.equal(a, c) for a, c in zip(g0, g1)):
+        raise AssertionError("phase14c: two runs of one minibatch_lg "
+                             "batch's loss and gradients differ")
+    after = []
+    for _ in range(2):
+        p, s = _clone_tree(tr["init"][0]), _clone_tree(tr["init"][1])
+        (p, s), _ = tr["step"](p, s, b)
+        after.append({"params": p, "opt": s})
+    off = [(p, d) for p, d, eq in _leaf_diffs(after[0], after[1]) if not eq]
+    if off:
+        raise AssertionError(f"phase14c: two runs of one step differ: {off}")
+    log(f"phase14c determinism: one minibatch_lg batch's loss "
+        f"({float(l0):.6f}) and {len(g0)} gradient leaves torch.equal over "
+        "two runs; one step from the same state torch.equal twice")
+
+
+def gnn_loop_phase(tr: dict, tmp, *, steps=GNN_STEPS,
+                   ckpt_every=GNN_CKPT_EVERY, fail_at=GNN_FAIL_AT) -> dict:
+    """14c: ``train_loop`` on minibatch_lg batches from the initial copy,
+    a checkpoint every ``ckpt_every`` steps and a failure after step
+    ``fail_at``; a second loop from a fresh copy resumes from the last
+    checkpoint, and its final parameters and optimizer state must be
+    torch.equal to 14a's uninterrupted run."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import InjectedFailure, LoopConfig, train_loop
+
+    d = os.path.join(tmp, "egnn")
+    cfg = LoopConfig(total_steps=steps, ckpt_dir=d, ckpt_every=ckpt_every,
+                     log_every=0)
+    p, s = _clone_tree(tr["init"][0]), _clone_tree(tr["init"][1])
+    try:
+        train_loop(tr["step"], p, s, tr["batch_fn"],
+                   dataclasses.replace(cfg, fail_at=fail_at), log=log)
+    except InjectedFailure as exc:
+        log(f"phase14c egnn: {exc}")
+    else:
+        raise AssertionError("train_loop ran past its injected failure")
+    latest = ckpt.latest_step(d)
+    if latest != fail_at // ckpt_every * ckpt_every:
+        raise AssertionError(f"latest checkpoint {latest}")
+    p, s = _clone_tree(tr["init"][0]), _clone_tree(tr["init"][1])
+    t0 = time.perf_counter()
+    (p, s), hist = train_loop(tr["step"], p, s, tr["batch_fn"], cfg, log=log)
+    resumed_s = time.perf_counter() - t0
+    if [h["step"] for h in hist] != list(range(latest + 1, steps)):
+        raise AssertionError(f"resumed steps {[h['step'] for h in hist]}")
+    off = [(path, dd) for path, dd, eq in _leaf_diffs(
+        {"params": p, "opt": s}, {"params": tr["params"],
+                                  "opt": tr["state"]}) if not eq]
+    if off:
+        raise AssertionError(f"phase14c: the resumed run differs from the "
+                             f"uninterrupted one: {off}")
+    log(f"phase14c egnn train_loop: failure after step {fail_at}, resumed "
+        f"from step {latest}, steps {latest + 1}-{steps - 1} in "
+        f"{resumed_s:.2f} s; final parameters and optimizer state "
+        "torch.equal to 14a's uninterrupted run")
+    return dict(resumed_s=resumed_s, latest=latest)
+
+
+def full_graph_batch(cfg, device, *, n=None, n_edges=None, k=4,
+                     seed=0) -> dict:
+    """full_graph_sm's graph as numpy: ``random_geometric_graph`` (k
+    neighbours a node, taken on ``device``) at the cell's nodes, its edge
+    list cut to the cell's count, normal features of ``cfg.d_feat`` and
+    uniform labels of its classes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import random_geometric_graph
+
+    cell = get_arch("egnn").cell("full_graph_sm")
+    n = n or cell["n_nodes"]
+    E = n_edges or cell["n_edges"]
+    g, coords = random_geometric_graph(n, k, seed=seed, device=device)
+    if g.n_edges < E:
+        raise AssertionError(f"{g.n_edges} edges for {E}")
+    src = np.repeat(np.arange(n, dtype=np.int32), np.diff(g.row_ptr))
+    rng = np.random.default_rng(seed)
+    return {"feats": rng.normal(size=(n, cfg.d_feat)).astype(np.float32),
+            "coords": coords,
+            "edges": np.stack([src[:E], g.col_idx[:E]]).astype(np.int32),
+            "labels": rng.integers(0, cfg.n_classes, size=n).astype(
+                np.int32)}
+
+
+def molecule_batch(cfg, *, B=None, n=None, e=None, seed=0) -> dict:
+    """The molecule cell as numpy: B graphs of n nodes and e random edges,
+    normal features and coordinates, one label a graph."""
+    from repro_torch.configs import get_arch
+
+    cell = get_arch("egnn").cell("molecule")
+    B, n, e = B or cell["batch"], n or cell["n_nodes"], e or cell["n_edges"]
+    rng = np.random.default_rng(seed)
+    return {"feats": rng.normal(size=(B, n, cfg.d_feat)).astype(np.float32),
+            "coords": rng.normal(size=(B, n, 3)).astype(np.float32),
+            "edges": rng.integers(0, n, size=(B, 2, e)).astype(np.int32),
+            "labels": rng.integers(0, cfg.n_classes, size=B).astype(
+                np.int32)}
+
+
+def _on(batch: dict, device) -> dict:
+    import torch
+
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def gnn_step_readings(what: str, cfg, batch: dict, device, *,
+                      steps=GNN_SMALL_STEPS) -> dict:
+    """ms a train step (``adamw(1e-3)``, CUDA events, the median of steps
+    1 on) and the peak bytes of step 1, every loss finite."""
+    import torch
+    from repro_torch.models import egnn as E
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.steps import make_train_step
+
+    opt = adamw(1e-3)
+    step = make_train_step(lambda p, b: E.loss_fn(p, b, cfg), opt)
+    params = E.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    state = opt.init(params)
+    b = _on(batch, device)
+    ms, peak = [], None
+    for s in range(steps):
+        if s == 1:
+            peak_memory(reset=True)
+        ((params, state), m), dev_ms = _event_timed(step, params, state, b)
+        if s == 1:
+            peak = peak_memory()
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"phase14b {what} step {s}: loss "
+                                 f"{float(m['loss'])}")
+        ms.append(dev_ms)
+    med = float(np.median(ms[1:] or ms))
+    log(f"phase14b {what} train: steps 1-{steps - 1} {_ms_summary(ms[1:])} "
+        f"a step (CUDA events), step 0 {ms[0]:.3f} ms; peak memory of step "
+        f"1 {_bytes(peak)}")
+    return dict(step_ms=med, peak=peak)
+
+
+def _held(what: str, got, want, tol, bf16_own=None) -> float:
+    """``got`` (on the card) against ``want`` (the CPU) at ``tol``; in
+    bfloat16 an entry past it still holds while the largest difference is
+    no more than ``bf16_own``, the card's bfloat16 result's own distance
+    from its float32 one.  Returns the largest difference."""
+    import torch
+
+    a, b = got.detach().float().cpu(), want.detach().float().cpu()
+    d = float((a - b).abs().max()) if a.numel() else 0.0
+    if torch.allclose(a, b, rtol=tol[0], atol=tol[1]):
+        return d
+    off = int((~torch.isclose(a, b, rtol=tol[0], atol=tol[1])).sum())
+    if bf16_own is not None and d <= bf16_own:
+        log(f"  {what}: {off} of {a.numel()} entries past {tol}, largest "
+            f"difference {d:.3g}, within bfloat16's own {bf16_own:.3g}")
+        return d
+    raise AssertionError(f"{what}: {off} of {a.numel()} entries past {tol}, "
+                         f"largest difference {d:.3g}")
+
+
+def _gnn_outputs(cfg, params, batch: dict, device) -> dict:
+    """The forward's logits and coordinates (batched where the batch is),
+    the loss and every gradient, on ``device``."""
+    from repro_torch.models import egnn as E
+    from repro_torch.train import tree as T
+
+    p = T.tree_map(lambda t: t.to(device), params)
+    b = _on(batch, device)
+    if b["feats"].ndim == 3:
+        logits, x = E.egnn_forward_batched(p, b["feats"], b["coords"],
+                                           b["edges"], cfg)
+    else:
+        logits, x = E.egnn_forward(p, b["feats"], b["coords"], b["edges"],
+                                   cfg)
+    loss, grads = gnn_loss_grads(lambda q, bb: E.loss_fn(q, bb, cfg), p, b)
+    return {"logits": logits.detach(), "coords": x.detach(), "loss": loss,
+            "grads": grads}
+
+
+def gnn_card_vs_cpu(what: str, cfg, batch: dict, device) -> dict:
+    """14b: the card against the CPU on the same weights (``init_params``
+    from a CPU generator seeded 0) and batch: logits, coordinates, loss
+    and every gradient, float32 at GNN_TOL, then bfloat16 at its
+    GNN_TOL (or within the card's bfloat16 result's own distance from
+    its float32 one).  Returns the largest difference of each."""
+    import torch
+    from repro_torch.models import egnn as E
+
+    params = E.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out, f32 = {}, None
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
+        card = _gnn_outputs(c, params, batch, device)
+        cpu = _gnn_outputs(c, params, batch, "cpu")
+        tol = GNN_TOL[dt]
+        worst = {}
+        for key in ("logits", "coords", "loss"):
+            own = None if f32 is None else float(
+                (card[key].float() - f32[key].float()).abs().max())
+            worst[key] = _held(f"phase14b {what} {dt} {key}", card[key],
+                               cpu[key], tol, own)
+        gw = []
+        for i, (a, b) in enumerate(zip(card["grads"], cpu["grads"])):
+            own = None if f32 is None else float(
+                (a - f32["grads"][i]).abs().max())
+            gw.append(_held(f"phase14b {what} {dt} grad {i}", a, b, tol,
+                            own))
+        worst["grads"] = max(gw)
+        out[dt] = worst
+        if f32 is None:
+            f32 = card
+    log(f"phase14b {what} card vs CPU ({len(gw)} gradient leaves): "
+        + "; ".join(f"{dt} largest differences " + ", ".join(
+            f"{k} {v:.3g}" for k, v in w.items()) for dt, w in out.items()))
+    return out
+
+
+def gnn_small_phase(device, *, full=None, molecule=None) -> dict:
+    """14b: full_graph_sm (Cora's size, its edge list cut to the cell's
+    count) and molecule (128 graphs of 30 nodes through
+    ``egnn_forward_batched``) at their widths: ms a step and peak bytes;
+    then the card against the CPU at those widths and at ``reduced()``
+    on both layouts."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch("egnn")
+    fcfg, mcfg = spec.model_for("full_graph_sm"), spec.model_for("molecule")
+    rcfg = spec.reduced()
+    fb = full_graph_batch(fcfg, device, **(full or {}))
+    mb = molecule_batch(mcfg, **(molecule or {}))
+    out = {"full_graph_sm": gnn_step_readings("full_graph_sm", fcfg, fb,
+                                              device),
+           "molecule": gnn_step_readings("molecule", mcfg, mb, device)}
+    rb = full_graph_batch(rcfg, device, **(full or {}))
+    rmb = molecule_batch(rcfg, **(molecule or {}))
+    out["card_vs_cpu"] = {
+        "full_graph_sm": gnn_card_vs_cpu("full_graph_sm", fcfg, fb, device),
+        "molecule": gnn_card_vs_cpu("molecule", mcfg, mb, device),
+        "reduced_node": gnn_card_vs_cpu("reduced() node", rcfg, rb, device),
+        "reduced_graph": gnn_card_vs_cpu("reduced() graph", rcfg, rmb,
+                                         device)}
+    return out
+
+
+def _halo_batch(batch: dict, shards: int) -> dict:
+    from repro_torch.data.graphs import partition_edges_by_dst
+
+    out = dict(batch)
+    out["edges"], out["edge_valid"] = partition_edges_by_dst(
+        batch["edges"], batch["feats"].shape[0], shards)
+    return out
+
+
+def halo_rank(rank, world, cfg, batch: dict, params: dict, device,
+              reps: int) -> dict:
+    """One of 14d's ranks: the (2, 2) debug mesh over gloo on ``device``,
+    ``make_sharded_loss`` on ``batch`` (host arrays, edges partitioned
+    over the ranks) and its gradients; then ``reps`` timed steps (loss and
+    backward) and ``reps`` runs of the step's collectives alone (per
+    layer an all-gather of h and of x, and their backward all-reduces).
+    Returns host arrays and ms."""
+    import torch
+    from repro_torch.distributed.collectives import all_gather_cat, all_reduce
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.models import egnn as E
+    from repro_torch.train import tree as T
+
+    def sync_here():                # a spawned rank: not the script's sync
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(HALO_MESH, ("data", "model"), device)
+    ag = axis_group(mesh, ("data", "model"))
+    b = _on(batch, device)
+    p = T.tree_map(lambda a: torch.tensor(a, device=device), params)
+    loss_fn = E.make_sharded_loss(cfg, mesh, ("data", "model"))
+    loss, grads = gnn_loss_grads(loss_fn, p, b)
+    sync_here()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        gnn_loss_grads(loss_fn, p, b)
+    sync_here()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    n_local = batch["feats"].shape[0] // ag.size
+    h = torch.zeros(n_local, cfg.d_hidden, device=device, dtype=cfg.dtype)
+    x = torch.zeros(n_local, 3, device=device, dtype=cfg.dtype)
+    sum_ = torch.distributed.ReduceOp.SUM
+    sync_here()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for _ in range(cfg.n_layers):
+            for t in (h, x):
+                all_reduce(all_gather_cat(t, ag, 0), ag, sum_)
+    sync_here()
+    gather_ms = (time.perf_counter() - t0) / reps * 1e3
+    return {"index": ag.index, "backend": ag.backend,
+            "loss": float(loss), "grads": [g.cpu().numpy() for g in grads],
+            "step_ms": step_ms, "gather_ms": gather_ms}
+
+
+def gnn_halo_phase(device, *, full=None, reps=HALO_REPS) -> dict:
+    """14d on full_graph_sm at full width, weights from ``init_params``
+    (a generator seeded 0 on ``device``): at world size 1 (NCCL on the
+    card) ``make_sharded_loss`` on the edges partitioned for one shard
+    (their order kept) against ``loss_fn``, loss and every gradient
+    torch.equal; then four gloo ranks on the one card (``halo_rank``),
+    their losses equal to each other's and, with their gradients, to
+    ``loss_fn`` on the card at HALO_TOL; per rank the ms of a step and of
+    its collectives alone."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.launch.ranks import process_group, spawn_ranks
+    from repro_torch.models import egnn as E
+    from repro_torch.train import tree as T
+
+    cfg = get_arch("egnn").model_for("full_graph_sm")
+    base = full_graph_batch(cfg, device, **(full or {}))
+    params = E.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    backend = "nccl" if str(device) != "cpu" else "gloo"
+    one = _on(_halo_batch(base, 1), device)
+    if not torch.equal(one["edges"].cpu(), torch.as_tensor(base["edges"])):
+        raise AssertionError("phase14d: the one-shard partition moved edges")
+    full_loss = lambda p, b: E.loss_fn(p, b, cfg)       # noqa: E731
+    with process_group(backend):
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        got = axis_group(mesh, ("data", "model")).backend
+        if got != backend:
+            raise AssertionError(f"phase14d: group {got}, want {backend}")
+        l1, g1 = gnn_loss_grads(
+            E.make_sharded_loss(cfg, mesh, ("data", "model")), params, one)
+    l0, g0 = gnn_loss_grads(full_loss, params, one)
+    if not torch.equal(l1, l0) or not all(
+            torch.equal(a, b) for a, b in zip(g1, g0)):
+        raise AssertionError("phase14d: the halo loss at world size 1 "
+                             "differs from loss_fn")
+    log(f"phase14d world size 1 ({backend}): halo loss {float(l1):.6f} and "
+        f"{len(g1)} gradient leaves torch.equal to loss_fn's")
+    world = math.prod(HALO_MESH)
+    four = _halo_batch(base, world)
+    want_l, want_g = gnn_loss_grads(full_loss, params, _on(four, device))
+    t0 = time.perf_counter()
+    res = spawn_ranks(halo_rank, world,
+                      (cfg, four, T.tree_map(lambda t: t.cpu().numpy(),
+                                             params), str(device), reps),
+                      backend="gloo", timeout_s=RANK_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    res.sort(key=lambda r: r["index"])
+    if {r["backend"] for r in res} != {"gloo"}:
+        raise AssertionError(f"phase14d: groups {[r['backend'] for r in res]}")
+    worst = 0.0
+    for r in res:
+        if r["loss"] != res[0]["loss"]:
+            raise AssertionError(f"phase14d: rank {r['index']}'s loss "
+                                 f"{r['loss']} differs from rank 0's")
+        if not math.isclose(r["loss"], float(want_l),
+                            rel_tol=HALO_TOL["loss"], abs_tol=0.0):
+            raise AssertionError(f"phase14d: rank loss {r['loss']}, "
+                                 f"loss_fn {float(want_l)}")
+        for i, (a, b) in enumerate(zip(r["grads"], want_g)):
+            b = b.cpu().numpy()
+            if not np.allclose(a, b, rtol=HALO_TOL["grad"][0],
+                               atol=HALO_TOL["grad"][1]):
+                raise AssertionError(f"phase14d: rank {r['index']} grad {i} "
+                                     f"off by {np.abs(a - b).max():.3g}")
+            worst = max(worst, float(np.abs(a - b).max()))
+        log(f"  rank {r['index']}: {r['step_ms']:.3f} ms a step (loss and "
+            f"backward), {r['gather_ms']:.3f} ms of it in the collectives "
+            f"alone, {r['step_ms'] - r['gather_ms']:.3f} ms the rest")
+    log(f"phase14d {world} gloo ranks (mesh {HALO_MESH} on {device}) in "
+        f"{secs:.1f} s: losses equal, {res[0]['loss']:.6f} against "
+        f"loss_fn's {float(want_l):.6f}; gradients within {HALO_TOL['grad']}"
+        f", largest difference {worst:.3g}")
+    return dict(loss=res[0]["loss"], want=float(want_l), grad_diff=worst,
+                ranks_s=secs,
+                step_ms=[r["step_ms"] for r in res],
+                gather_ms=[r["gather_ms"] for r in res])
+
+
+def gnn_products_phase(device, *, n_nodes=None, n_edges=None,
+                       seed=0) -> dict:
+    """14e: ogb_products at its full size, a graph drawn by
+    ``power_law_on_device`` cut to the cell's edges, normal features and
+    coordinates, weights from ``init_params``; ``egnn_forward`` and
+    ``node_embeddings`` under ``torch.inference_mode`` (seconds, peak
+    bytes, the model flops over seconds x the float32 peak); every output
+    finite, and the decoder over the embeddings torch.equal to the
+    logits."""
+    import torch
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_arch
+    from repro_torch.models import egnn as E
+    from repro_torch.models.layers import apply_mlp_tower
+
+    spec = get_arch("egnn")
+    cell, cfg = spec.cell("ogb_products"), spec.model_for("ogb_products")
+    n, E_ = n_nodes or cell["n_nodes"], n_edges or cell["n_edges"]
+    t0 = time.perf_counter()
+    g, src = power_law_on_device(n, -(-E_ // n) + 1, device, seed=seed,
+                                 n_edges=E_)
+    edges = torch.stack([src, g.col_idx.long()])
+    del g, src
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    feats = torch.randn(n, cfg.d_feat, generator=gen, device=device)
+    coords = torch.randn(n, 3, generator=gen, device=device)
+    params = E.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    sync()
+    setup_s = time.perf_counter() - t0
+    out = {"n_nodes": n, "n_edges": E_, "setup_s": setup_s}
+    with torch.inference_mode():
+        peak_memory(reset=True)
+        t0 = time.perf_counter()
+        logits, x = E.egnn_forward(params, feats, coords, edges, cfg)
+        sync()
+        out["forward_s"] = time.perf_counter() - t0
+        out["forward_peak"] = peak_memory()
+        _check_finite("phase14e logits", logits)
+        _check_finite("phase14e coords", x)
+        if tuple(logits.shape) != (n, cfg.n_classes):
+            raise AssertionError(f"phase14e logits {tuple(logits.shape)}")
+        del x
+        peak_memory(reset=True)
+        t0 = time.perf_counter()
+        emb = E.node_embeddings(params, feats, coords, edges, cfg)
+        sync()
+        out["embeddings_s"] = time.perf_counter() - t0
+        out["embeddings_peak"] = peak_memory()
+        _check_finite("phase14e embeddings", emb)
+        dec = apply_mlp_tower(params["decoder"], emb, act=E.silu).to(
+            torch.float32)
+        if not torch.equal(dec, logits):
+            raise AssertionError("phase14e: the decoder over node_embeddings "
+                                 "differs from egnn_forward's logits")
+    flops = roofline.egnn_model_flops(cfg, n, E_, train=False)
+    out["flops"] = flops
+    out["fp32_share"] = flops / roofline.PEAK_FLOPS / out["forward_s"]
+    log(f"phase14e ogb_products: {n:,} nodes, {E_:,} edges, "
+        f"{cfg.d_feat} features, {cfg.n_classes} classes; graph, features "
+        f"and weights on the card in {setup_s:.3f} s; egnn_forward "
+        f"{out['forward_s']:.3f} s (peak memory "
+        f"{_bytes(out['forward_peak'])}), node_embeddings "
+        f"{out['embeddings_s']:.3f} s (peak {_bytes(out['embeddings_peak'])}"
+        f"); {flops / 1e12:.2f} TFLOP a forward, "
+        f"{out['fp32_share']:.4f} of the float32 peak; the decoder over the "
+        "embeddings torch.equal to the logits")
+    return out
+
+
+def gnn_phase(device, *, minibatch=None, small=None, halo=None,
+              products=None, launcher=None, steps=GNN_STEPS) -> dict:
+    """Phase 14 (14a-14e) in this process: see the module docstring.  No
+    kernel of the port is on this path: every launch counter must read 0
+    after it.  Returns the numbers of each piece."""
+    import gc
+    import tempfile
+
+    import torch
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops = launch_counters()
+    for m, attr in ops.values():
+        setattr(m, attr, 0)
+    out = {}
+    tr = gnn_minibatch_setup(device, **(minibatch or {}))
+    out["14a"] = gnn_train_phase(tr, device, steps=steps)
+    gnn_determinism(tr)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gnn_") as tmp:
+        out["14c"] = gnn_loop_phase(tr, tmp, steps=steps)
+        out["14c"]["launcher"] = train_launcher_phase(
+            device, tmp, tag="phase14c", **(launcher or LAUNCH_GNN))
+    del tr
+    if str(device) != "cpu":
+        torch.cuda.empty_cache()
+    out["14b"] = gnn_small_phase(device, **(small or {}))
+    out["14d"] = gnn_halo_phase(device, **(halo or {}))
+    if str(device) != "cpu":
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["14e"] = gnn_products_phase(device, **(products or {}))
+    launches = {name: getattr(m, attr) for name, (m, attr) in ops.items()}
+    if any(launches.values()):
+        raise AssertionError(f"phase14 launched kernels: {launches}")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"phase14 done in {out['seconds']:.1f} s; kernel launches "
+        f"{launches} (none expected: no kernel is on this path)")
+    return out
+
+
+RESULT14 = "phase14-result "         # the line the phase-14 child prints last
+
+
+def gnn_in_child(device, **kw) -> dict:
+    """``gnn_phase(device, **kw)`` in a process of its own (``python -c``;
+    ``kw`` must be JSON), its log relayed line by line: a fresh CUDA
+    context, as phase 13's children.  The child's caching allocator maps
+    expandable segments: with fixed ones an ogb_products layer's 29.7 GiB
+    concatenation found 29.8 GiB reserved but split among the freed
+    blocks of the layer before, and failed at 33.5 GiB allocated
+    (NVIDIA H100 80GB HBM3, PERF.md §6)."""
+    code = ("import json, chip_smoke as cs; "
+            f"r = cs.gnn_phase({device!r}, "
+            f"**json.loads({json.dumps(json.dumps(kw))})); "
+            "print(cs.RESULT14 + json.dumps(r))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=900, cwd=ROOT, env=env)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(RESULT14):
+            result = json.loads(line[len(RESULT14):])
+        else:
+            log(line)
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"phase14 exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=N_AUDIO,
@@ -5187,6 +5951,10 @@ def main(argv=None) -> int:
     # that empty_cache() did not return (PERF.md §6)
     lm_phase(device)
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 13 done")
+    # phase 14 in a process of its own too, while this one holds only the
+    # built kernels
+    gnn_in_child(device)
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 14 done")
 
     # phase 2
     checks, host_loop = phase2(device, args.n, args.queries)

@@ -1,6 +1,6 @@
 """Config system: one ArchSpec per assigned architecture, ported from
-``src/repro/configs/base.py`` (``ShapeCell``, ``ArchSpec``, the LM and
-recsys shapes; the GNN shapes wait for their slice).
+``src/repro/configs/base.py`` (``ShapeCell``, ``ArchSpec``, the LM,
+recsys and GNN shapes).
 
 An ArchSpec bundles the model config, the architecture family (which picks
 the train/serve step implementations), the assigned input shapes, and a
@@ -64,4 +64,18 @@ RECSYS_SHAPES = (
     ShapeCell("serve_bulk", "recsys_serve", dict(batch=262144)),
     ShapeCell("retrieval_cand", "retrieval",
               dict(batch=1, n_candidates=1_000_000)),
+)
+
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "full_graph",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7)),
+    ShapeCell("minibatch_lg", "minibatch",
+              dict(n_nodes=232_965, n_edges=114_615_892, batch_nodes=1024,
+                   fanouts=(15, 10), d_feat=602, n_classes=41)),
+    ShapeCell("ogb_products", "full_graph",
+              dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100,
+                   n_classes=47)),
+    ShapeCell("molecule", "molecule",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=16,
+                   n_classes=16)),
 )

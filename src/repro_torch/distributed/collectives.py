@@ -16,6 +16,11 @@ result on every rank:
   on the rank whose row-major index over those axes is ``i``; an output
   sharded over the batch axes is gathered back the same way.
 
+Inside a loss that autograd differentiates, the transposes JAX derives
+are written out: :func:`all_gather_rows` (backward a reduce-scatter),
+:func:`psum_forward` (backward the identity) and :func:`replicated` (a
+parameter's gradient summed over the group).
+
 Under gloo a CUDA tensor goes through a host copy (gloo's CUDA support
 does not cover every op); NCCL takes it in place.
 """
@@ -53,6 +58,63 @@ def all_reduce(t: torch.Tensor, ag: AxisGroup, op) -> torch.Tensor:
     buf = buf.contiguous()
     torch.distributed.all_reduce(buf, op=op, group=ag.group)
     return buf.to(t.device)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag):
+        ctx.ag = ag
+        return all_gather_cat(t, ag, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        summed = all_reduce(g, ctx.ag, torch.distributed.ReduceOp.SUM)
+        return block(summed, ctx.ag, 0), None
+
+
+def all_gather_rows(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """``all_gather(t, axes, axis=0, tiled=True)`` with JAX's transpose as
+    its backward: a reduce-scatter, each rank's block of the cotangents
+    summed over the group.  Gloo has no ``reduce_scatter``, so the
+    backward is an ``all_reduce`` and this rank's slice of it."""
+    return _GatherRows.apply(t, ag)
+
+
+class _PsumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag):
+        return all_reduce(t, ag, torch.distributed.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum_forward(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """``t`` summed over the group, its cotangent passed through unchanged:
+    the sum of a replicated result's per-rank terms.  Unlike
+    ``torch.distributed.nn.functional.all_reduce``, whose backward sums
+    again, this does not scale the gradients by the group's size."""
+    return _PsumForward.apply(t, ag)
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag):
+        ctx.ag = ag
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ag, torch.distributed.ReduceOp.SUM), None
+
+
+def replicated(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """``t`` as a value every rank of the group holds alike (a replicated
+    parameter): the identity forward, and its gradient summed over the
+    group once in the backward, as ``shard_map`` sums the cotangents of
+    an input it replicates."""
+    return _Replicated.apply(t, ag)
 
 
 def block(x: torch.Tensor, ag: AxisGroup, dim: int = 0) -> torch.Tensor:

@@ -10,7 +10,8 @@ both packages search the same sub-DEGs; :func:`recsys_model_from_numpy`
 turns a recsys parameter dict into a ``RecsysModel`` with the same
 weights, :func:`lm_model_from_numpy` does the same for an LM's parameter
 dict (a ``TransformerModel``) and :func:`lm_cache_from_numpy` for its KV
-cache, and :func:`opt_state_from_numpy` an optimizer state of
+cache, :func:`egnn_params_from_numpy` turns an EGNN parameter dict into
+the port's, and :func:`opt_state_from_numpy` an optimizer state of
 ``repro.train.optimizer`` into the port's, so both packages take the same
 train steps.  The ``*_to_numpy`` functions bring the port's tensors back, so
 tests compare with ``np.testing`` and never tensor against array.
@@ -174,6 +175,21 @@ def lm_cache_to_numpy(cache: dict) -> dict:
 
     return {"k": [a(x) for x in cache["k"]], "v": [a(x) for x in cache["v"]],
             "pos": np.int32(cache["pos"])}
+
+
+def egnn_params_from_numpy(params: dict, device="cuda") -> dict:
+    """The JAX package's EGNN parameters (``init_params``' nested dict of
+    stacked layers, leaves as numpy arrays) as the port's: the same nested
+    dict of float32 tensors on ``device``."""
+    return tree_map(lambda v: torch.tensor(np.asarray(v, np.float32),
+                                           device=device), params)
+
+
+def egnn_params_to_numpy(params: dict) -> dict:
+    """The port's EGNN parameters as the JAX package's nested dict of
+    float32 numpy arrays."""
+    return tree_map(lambda t: t.detach().to(torch.float32).cpu().numpy(),
+                    params)
 
 
 def opt_state_from_numpy(state, device="cuda"):

@@ -1,11 +1,13 @@
 """Training launcher, ported from ``src/repro/launch/train.py``:
 ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-Runs a REDUCED LM or recsys config end to end (checkpoints, resume,
-failure injection, deterministic data replay) on the card unless
+Runs a REDUCED LM, GNN or recsys config end to end (checkpoints,
+resume, failure injection, deterministic data replay) on the card unless
 ``--device cpu`` is given; an LM trains on ``lm_synthetic_batch_fn``'s
-stream at ``--seq`` tokens a sequence.  EGNN, the JAX registry's GNN,
-comes with its model (ROADMAP A12).
+stream at ``--seq`` tokens a sequence, EGNN on subgraphs sampled at
+fanouts (5, 5) around ``--batch`` seeds of a 2,000-node geometric graph
+(:func:`gnn_trainer`, which also builds the ``minibatch_lg`` cell's
+trainer at its published width).
 
 :func:`train_batch_trainer` builds the ``train_batch`` cell at a model's
 published width: the MLPerf optimizer split of the JAX package's
@@ -16,21 +18,6 @@ from __future__ import annotations
 
 import argparse
 import time
-
-# the JAX registry's architectures whose families the port does not train
-# yet, with the ROADMAP item that ports them
-_NOT_PORTED = {"egnn": "gnn"}
-
-
-def _spec(arch: str):
-    from repro_torch.configs import get_arch
-
-    family = _NOT_PORTED.get(arch)
-    if family is not None:
-        raise ValueError(
-            f"{arch!r} is of the {family} family, which the port does not "
-            "train yet (ROADMAP A12: the EGNN model)")
-    return get_arch(arch)
 
 
 class StepBatches:
@@ -103,20 +90,78 @@ def _lm_trainer(cfg, opt, batch: int, seq: int, seed: int, device,
         lambda s: as_tensors(stream(s), device)
 
 
+def gnn_trainer(cfg, opt, graph, feats, labels, coords, batch: int,
+                fanouts, seed: int = 0):
+    """(step, params, opt_state, batch_fn) of EGNN ``cfg`` under ``opt`` on
+    subgraphs of ``graph`` (a ``CSRGraph`` or ``GraphTensors``), on the
+    device of ``feats``: weights from a ``torch.Generator`` seeded
+    ``seed`` there; step ``s``'s batch samples ``batch`` seeds drawn by
+    ``numpy.random.default_rng((seed, s))`` at ``fanouts`` with a
+    generator seeded ``s`` (``data.graphs.subgraph_batch``), so that it
+    is a function of ``s`` alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.graphs import subgraph_batch
+    from repro_torch.models import egnn as E
+    from repro_torch.train.steps import make_train_step
+
+    device = feats.device
+    params = E.init_params(cfg, torch.Generator(device=device).manual_seed(
+        seed), device)
+    step = make_train_step(lambda p, b: E.loss_fn(p, b, cfg), opt)
+
+    def batch_fn(s):
+        seeds = np.random.default_rng((seed, s)).integers(
+            0, graph.n_nodes, size=batch).astype(np.int32)
+        gen = torch.Generator(device=device).manual_seed(s)
+        return subgraph_batch(graph, feats, labels, seeds, gen,
+                              tuple(fanouts), coords=coords)
+
+    return step, params, opt.init(params), batch_fn
+
+
+def _gnn_reduced_trainer(cfg, opt, batch: int, seed: int, device):
+    """The JAX launcher's GNN set-up: a 2,000-node geometric graph (k=8),
+    normal features, labels from the signs of the first two coordinates,
+    fanouts (5, 5)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.graphs import random_geometric_graph
+
+    g, coords = random_geometric_graph(2000, 8, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(2000, cfg.d_feat)).astype(np.float32)
+    labels = (coords[:, 0] > 0).astype(np.int32) + 2 * (
+        coords[:, 1] > 0).astype(np.int32)
+    return gnn_trainer(cfg, opt, g, torch.tensor(feats, device=device),
+                       torch.tensor(labels, device=device),
+                       torch.tensor(coords, device=device), batch, (5, 5),
+                       seed)
+
+
 def build_reduced_trainer(arch: str, batch: int, seq: int = 64,
                           seed: int = 0, device="cuda",
                           microbatches: int = 1):
-    """(step, params, opt_state, batch_fn) of the reduced config of an LM
-    or recsys ``arch`` under AdamW with a cosine schedule; an LM's batches
-    hold ``batch`` sequences of ``seq`` tokens.  ``batch_fn`` makes each
-    batch when it is asked for and keeps none."""
+    """(step, params, opt_state, batch_fn) of the reduced config of an LM,
+    GNN or recsys ``arch`` under AdamW with a cosine schedule; an LM's
+    batches hold ``batch`` sequences of ``seq`` tokens, a GNN's the
+    subgraphs of ``batch`` seeds.  ``batch_fn`` makes each batch when it
+    is asked for and keeps none."""
+    from repro_torch.configs import get_arch
     from repro_torch.train.optimizer import adamw, cosine_schedule
 
-    spec = _spec(arch)
+    spec = get_arch(arch)
     cfg = spec.reduced()
     opt = adamw(cosine_schedule(3e-3, warmup=20, total=500))
     if spec.family == "lm":
         return _lm_trainer(cfg, opt, batch, seq, seed, device, microbatches)
+    if spec.family == "gnn":
+        if microbatches > 1:
+            raise ValueError("a GNN batch is one graph: it does not split "
+                             "into microbatches")
+        return _gnn_reduced_trainer(cfg, opt, batch, seed, device)
     return _recsys_trainer(cfg, opt, batch, seed, device, microbatches)
 
 
@@ -127,9 +172,10 @@ def train_batch_trainer(arch: str, device="cuda", seed: int = 0,
     and the MLPerf split ``partitioned(mlperf_label, {"embed": sgd(0.05),
     "dense": adamw(1e-3)})``.  ``batch_fn`` is a :class:`StepBatches`,
     which keeps every batch it makes on the device."""
+    from repro_torch.configs import get_arch
     from repro_torch.train.optimizer import adamw, partitioned, sgd
 
-    spec = _spec(arch)
+    spec = get_arch(arch)
     cfg = cfg or spec.model
     batch = batch or spec.cell("train_batch")["batch"]
     opt = partitioned(mlperf_label, {"embed": sgd(0.05),

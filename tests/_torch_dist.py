@@ -2,7 +2,8 @@
 
 * The data: numpy arrays drawn from fixed seeds, the inputs of
   ``tests/test_distributed.py``, ``tests/test_persist.py`` and
-  ``tests/test_persist_wal.py``'s sharded cases.
+  ``tests/test_persist_wal.py``'s sharded cases, and the graph of
+  ``tests/test_torch_egnn_sharded.py``.
 * The JAX side: ``python tests/_torch_dist.py CASE OUT.npz [ARG]`` runs
   one case's JAX programs on four host devices and writes what they
   computed to ``OUT.npz`` (written whole, then renamed; a failed run
@@ -96,6 +97,55 @@ def persist_data():
 CODECS = ("float32", "sq8", "pq")
 #: rerank widths of the JAX package's quantized sharded tests
 RERANK = {"float32": 0, "sq8": 20, "pq": 40}
+
+
+#: the reduced EGNN config's fields (``configs.get_arch("egnn").reduced()``)
+EGNN_CFG = dict(n_layers=2, d_hidden=16, d_feat=24, n_classes=5)
+EGNN_SHARDS = 4
+
+
+def egnn_data(n: int = 40, e: int = 160) -> dict:
+    """A graph of ``n`` nodes and ``e`` random edges, before partitioning;
+    every seventh label -1."""
+    rng = np.random.default_rng(31)
+    labels = rng.integers(0, EGNN_CFG["n_classes"], size=n).astype(np.int32)
+    labels[::7] = -1
+    return {"feats": rng.normal(size=(n, EGNN_CFG["d_feat"])).astype(
+                np.float32),
+            "coords": rng.normal(size=(n, 3)).astype(np.float32),
+            "edges": rng.integers(0, n, size=(2, e)).astype(np.int32),
+            "labels": labels}
+
+
+def egnn_batch(partition) -> dict:
+    """:func:`egnn_data` with its edges through ``partition`` (either
+    package's ``partition_edges_by_dst``) over EGNN_SHARDS shards."""
+    d = egnn_data()
+    d["edges"], d["edge_valid"] = partition(d["edges"], d["feats"].shape[0],
+                                            EGNN_SHARDS)
+    return d
+
+
+def flat(tree: dict, prefix: str = "") -> dict:
+    """A nested dict of arrays as one level of ``a/b/c`` keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def unflat(d: dict) -> dict:
+    out: dict = {}
+    for key, v in d.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +314,35 @@ def _jax_persist(out: dict, port_path: str, jax_path: str) -> None:
     out["port_codec"] = np.array(port.codec)
 
 
+def _jax_egnn(out: dict, params_path: str) -> None:
+    """The JAX package's halo loss on the (2, 2) debug mesh and its
+    ``loss_fn`` on the same partitioned graph, each with its gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.compat import set_mesh
+    from repro.data.graphs import partition_edges_by_dst
+    from repro.launch.mesh import make_debug_mesh
+    from repro.models import egnn as E
+
+    cfg = E.EGNNConfig(name="egnn-reduced", **EGNN_CFG)
+    with np.load(params_path) as z:
+        params = jax.tree.map(jnp.asarray, unflat(dict(z)))
+    batch = {k: jnp.asarray(v)
+             for k, v in egnn_batch(partition_edges_by_dst).items()}
+    mesh = make_debug_mesh()
+    sharded = E.make_sharded_loss(cfg, mesh, ("data", "model"))
+    with set_mesh(mesh):
+        (loss, _), g = jax.jit(jax.value_and_grad(sharded, has_aux=True))(
+            params, batch)
+    out["sharded_loss"] = loss
+    out.update(flat(g, "sharded_grad/"))
+    (loss, _), g = jax.value_and_grad(
+        lambda p: E.loss_fn(p, batch, cfg), has_aux=True)(params)
+    out["full_loss"] = loss
+    out.update(flat(g, "full_grad/"))
+
+
 def _jax_main(case: str, path: str, *args) -> None:
     out: dict = {}
     try:
@@ -271,6 +350,8 @@ def _jax_main(case: str, path: str, *args) -> None:
             _jax_sharded(out, *args)
         elif case == "persist":
             _jax_persist(out, *args)
+        elif case == "egnn":
+            _jax_egnn(out, *args)
         else:
             raise ValueError(f"unknown case {case!r}")
         np.savez(path + ".tmp.npz", **{k: np.asarray(v)
@@ -402,6 +483,49 @@ def persist_rank(rank, world, live: dict, port_path: str,
     search("restored", ShardedDEG.load(port_path, device="cpu"))
     wait_file(jax_path)
     search("jax_file", ShardedDEG.load(jax_path, device="cpu"))
+    return out
+
+
+def egnn_halo_rank(rank, world, params: dict) -> dict:
+    """The port's halo loss on one rank of the (2, 2) debug mesh over
+    :func:`egnn_batch` (``params`` :func:`flat`'s dict), with every
+    parameter's gradient; and three probes of the differentiable
+    collectives on this rank's row of ones: ``psum_forward``'s gradient
+    (ones, not the world size), ``replicated``'s (the world size: one
+    from each rank) and ``all_gather_rows``' (each rank's block summed
+    over the ranks)."""
+    import torch
+
+    from repro_torch.data.graphs import partition_edges_by_dst
+    from repro_torch.distributed.collectives import (all_gather_rows,
+                                                     psum_forward, replicated)
+    from repro_torch.interop import egnn_params_from_numpy
+    from repro_torch.launch.mesh import axis_group, make_debug_mesh
+    from repro_torch.models import egnn as E
+    from repro_torch.train import tree as T
+
+    mesh = make_debug_mesh("cpu")
+    ag = axis_group(mesh, ("data", "model"))
+    cfg = E.EGNNConfig(name="egnn-reduced", **EGNN_CFG)
+    batch = {k: torch.tensor(v)
+             for k, v in egnn_batch(partition_edges_by_dst).items()}
+    views = T.tree_map(lambda t: t.requires_grad_(),
+                       egnn_params_from_numpy(unflat(params), "cpu"))
+    loss, _ = E.make_sharded_loss(cfg, mesh, ("data", "model"))(views, batch)
+    grads = torch.autograd.grad(loss, T.leaves(views))
+    out = {"index": ag.index, "backend": ag.backend,
+           "loss": _np(loss.detach()),
+           "grads": flat(T.unflatten(views, [_np(g) for g in grads]))}
+    x = torch.ones(3, requires_grad=True)
+    out["psum_grad"] = _np(torch.autograd.grad(psum_forward(x.sum(), ag),
+                                               x)[0])
+    out["replicated_grad"] = _np(torch.autograd.grad(
+        replicated(x, ag).sum(), x)[0])
+    rows = torch.ones(2, 2, requires_grad=True)
+    full = all_gather_rows(rows, ag)
+    w = torch.arange(full.shape[0], dtype=torch.float32)[:, None]
+    out["gather_rows"] = _np(full.detach())
+    out["gather_grad"] = _np(torch.autograd.grad((full * w).sum(), rows)[0])
     return out
 
 

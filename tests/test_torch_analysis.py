@@ -3,9 +3,9 @@ the JAX package's, on the CPU.
 
 * Every model-flops function on every (arch, shape) cell of the JAX
   registry's ten architectures: the port's functions read only attributes
-  of the config, so they take the JAX configs (the GNN family, which the
-  port does not have yet) and the port's LM and recsys configs alike;
-  equal to the last bit (the same float64 arithmetic).
+  of the config, so they take the JAX configs and the port's own configs
+  of every family alike; equal to the last bit (the same float64
+  arithmetic).
 * ``kernel_tile_costs`` equal at ``KERNEL_DIMS``; ``kernel_roofline`` and
   ``attribute_kernel_time`` equal once the JAX module's TPU constants are
   set to the port's H100 figures (the two differ only in the constants).
@@ -51,11 +51,9 @@ def test_model_flops_match_jax(arch, shape):
     want = jroof.model_flops_for(meta, cell.kind, cell.dims)
     assert troof.model_flops_for(meta, cell.kind, cell.dims) == want
     assert want > 0
-    if spec.family in ("recsys", "lm"):
-        # the port's own config: the same numbers
-        tmeta = {"family": spec.family,
-                 "cfg": tconfigs.get_arch(arch).model_for(shape)}
-        assert troof.model_flops_for(tmeta, cell.kind, cell.dims) == want
+    # the port's own config: the same numbers
+    tmeta = _meta(tconfigs.get_arch(arch), shape)
+    assert troof.model_flops_for(tmeta, cell.kind, cell.dims) == want
     if spec.family == "recsys":
         assert troof.recsys_model_flops(
             tmeta["cfg"], cell.kind, cell["batch"],

@@ -165,18 +165,14 @@ def test_train_fails_then_resumes(capsys, tmp_path):
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "egnn"])
 def test_train_names_the_roadmap_item_for_other_families(arch, capsys):
     """An LM arch trains since the LM slice (its reduced config, --seq
-    tokens a sequence); EGNN, whose family the port does not train yet,
-    raises naming the ROADMAP item; an unknown name raises."""
+    tokens a sequence) and EGNN since the EGNN slice (subgraphs of --batch
+    seeds); an unknown name raises."""
     from repro_torch.launch import train
 
-    if arch == "egnn":
-        with pytest.raises(ValueError, match="ROADMAP A12"):
-            train.main(["--arch", arch, "--device", "cpu"])
-    else:
-        train.main(["--arch", arch, "--device", "cpu", "--steps", "3",
-                    "--batch", "2", "--seq", "8"])
-        assert re.search(r"final loss: [0-9.]+ \(first: [0-9.]+\)",
-                         capsys.readouterr().out)
+    train.main(["--arch", arch, "--device", "cpu", "--steps", "3",
+                "--batch", "2", "--seq", "8"])
+    assert re.search(r"final loss: [0-9.]+ \(first: [0-9.]+\)",
+                     capsys.readouterr().out)
     with pytest.raises(ValueError, match="unknown arch"):
         train.main(["--arch", "no-such-arch", "--device", "cpu"])
 

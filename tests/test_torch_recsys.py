@@ -289,18 +289,18 @@ def test_arch_specs_equal_jax(arch):
 def test_recsys_shapes_equal_jax():
     assert _cells(tbase.RECSYS_SHAPES) == _cells(jbase.RECSYS_SHAPES)
     assert tbase.RECSYS_SHAPES[1]["batch"] == 512
-    # the ported registry: the recsys archs and, since the LM slice, the
-    # five LM archs; EGNN waits for its slice
+    # the ported registry: the recsys archs, the five LM archs and, since
+    # the EGNN slice, EGNN: the JAX registry's every arch
     assert set(ARCHS) <= set(tconfigs.list_archs())
-    assert tconfigs.list_archs() == sorted(set(jconfigs.list_archs())
-                                           - {"egnn"})
+    assert tconfigs.list_archs() == jconfigs.list_archs()
 
 
-@pytest.mark.parametrize("name", ["phi3-mini", "egnn", "no-such-arch"])
+@pytest.mark.parametrize("name", ["phi3-mini", "egnn-reduced",
+                                  "no-such-arch"])
 def test_get_arch_rejects_names_the_port_does_not_serve(name):
-    """A GNN name, which the JAX registry knows, and names neither registry
-    knows (a cut LM name among them) raise the JAX registry's ValueError
-    in the port."""
+    """Names neither registry knows (a cut LM name and the reduced EGNN
+    config's name among them) raise the JAX registry's ValueError in the
+    port."""
     with pytest.raises(ValueError, match="unknown arch"):
         tconfigs.get_arch(name)
 

@@ -227,11 +227,9 @@ def test_configs_cross_over_one_to_one(arch):
 
 
 def test_registry_and_cells():
-    assert tconfigs.list_archs() == sorted(set(jconfigs.list_archs())
-                                           - {"egnn"})
-    assert tconfigs.all_cells() == [c for c in jconfigs.all_cells()
-                                    if c[0] != "egnn"]
-    assert len(tconfigs.all_cells()) == 36
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    assert tconfigs.all_cells() == jconfigs.all_cells()
+    assert len(tconfigs.all_cells()) == 40
 
 
 def test_abstract_cache_equals_init_cache_shapes():
