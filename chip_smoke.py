@@ -47,7 +47,7 @@ Phases (any failure raises and exits non-zero):
      also with the base cut into the splits the kernel plans, held
      bit-identical (torch.equal) to one split in both modes; and the
      whole-search beam_search over the phase-2 graph at classic serving
-     (B=256, L=30) on float32 and fp16 rows, E=4, E=2 with V=1024, an
+     (B=256, L=30) on float32, fp16 and bf16 rows, E=4, E=2 with V=1024, an
      insert wave (B=64, L=80, k=40, eps 0.3), an exploration hop (B=8,
      L=42, 32 excluded ids), refinement's two searches (B=75 and 1,
      L=40, k=20, eps 0.001), pq-serving over the phase-2 rows encoded
@@ -327,8 +327,38 @@ Phases (any failure raises and exits non-zero):
      under inference_mode (s, peak bytes, the share of the float32 peak),
      every output finite, the decoder over the embeddings torch.equal to
      the logits; every launch counter 0 after the phase;
-  15. the kernels' JSON line (the ten kernel rows: phases 13 and 14 launch
-     none), then the final JSON line.
+  15. (in this process, right after phase 12, whose memory check it
+     follows: after phase 12 the allocated and reserved bytes each within
+     MEMORY_SLACK of their values before phase 8, and the reserved within
+     MEMORY_SLACK of the allocated, all four logged) the cell
+     builder on a world-size-1 NCCL mesh (1, 1) named ("data", "model"):
+     15a. every cell of the registry (the 40 less the 3 skipped, each
+     SkippedCell held to spec.skip), the three deg-ann cells and the
+     variants tests/test_cells_debug_mesh.py builds, with their
+     placements; each cell's argument bytes (parameters, optimizer state,
+     cache, batch) against the card's memory;
+     15b. the deg-ann cells search_16m, explore_16m and build_wave_16m,
+     and search_16m under bf16vecs, at their full size through
+     build_cell(...).fn: 2^24 normal vectors of dim 128 and 15 random
+     Hamiltonian cycles (a 30-regular graph, no DEG: no recall) drawn on
+     the card from a generator seeded 0, batches of 4,096 (explore_16m's
+     queries the rows of each lane's first excluded id); the arguments
+     held leaf for leaf to the cell's meta ones; ms a call by CUDA
+     events, queries/s, peak bytes; the local search of every lane from
+     one init, its beam_search launch torch.equal to the host loop
+     (gather_dist over the cell's rows and beam_merge) on every field and
+     held to its plain version as phase 2 holds it (ids on 99% of slots,
+     dists rtol 1e-5 there, total hops and evals within 1%), one call of
+     each timed by CUDA events, hops and evals (mean, max), and the bound
+     of phase 2 (the distinct rows the call reads);
+     15c. cells through their fn on real tensors of their meta arguments'
+     shapes, each torch.equal to the unsharded function from the same
+     state: DIN and DCN-v2 serve_p99 (recsys.forward), DIN train_batch for
+     2 steps (launch.train's trainer), EGNN full_graph_sm, its halo variant
+     and molecule (make_train_step over loss_fn);
+  16. the kernels' JSON line (the eleven kernel rows: phases 13 and 14
+     launch none; beam_search's row carries its bf16 checks, phase 2's and
+     15b's, under "checks"), then the final JSON line.
 
 The kernels' launch counters read the builds, the ground truths, the
 timed serving loops (compressed ones and the baselines' too), the
@@ -475,6 +505,20 @@ HALO_REPS = 5                      # 14d: timed steps a rank
 # 1.5138), as 12d found for DIN
 LAUNCH_GNN = dict(arch="egnn", steps=60, fail_at=30, batch=256,
                   ckpt_every=20)
+# phase 15: the cell builder on a world-size-1 mesh (data, model)
+CELLS_MESH = (1, 1)
+CARD_BYTES = 80 * 10**9            # the card's memory, off the card
+# 15a: the variants tests/test_cells_debug_mesh.py builds
+CELL_VARIANTS = (("granite-3-2b", "train_4k", "seqpar"),
+                 ("egnn", "full_graph_sm", "halo"),
+                 ("granite-3-2b", "train_4k", "seqpar+microbatch4"))
+# 15b: the deg-ann cells run at 2^24 vectors, and search_16m's bf16 rows
+DEG_RUN = (("search_16m", ""), ("explore_16m", ""), ("build_wave_16m", ""),
+           ("search_16m", "bf16vecs"))
+DEG_REPS = 3                       # timed calls a cell
+DEG_EPS = 0.1                      # the deg-ann cells' search eps
+CELL_TRAIN_STEPS = 2               # 15c: DIN train_batch steps
+MEMORY_SLACK = 1 << 30             # the card's bytes after phase 12
 
 KERNELS = {
     "gather_dist": "src/repro/kernels/gather_dist/gather_dist.py:35",
@@ -589,21 +633,30 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
         e.record()
         e.synchronize()
         ev.append(s.elapsed_time(e))
+    home = torch.cuda.current_stream()
     side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
+    side.wait_stream(home)
     with torch.cuda.stream(side):
-        fn()                                     # warm-up on the capture stream
-    torch.cuda.current_stream().wait_stream(side)
+        reason = host_sync(fn)                   # warm-up on the capture stream
+    home.wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, stream=side):
-            for _ in range(reps):
-                fn()
-    except RuntimeError as exc:
-        log(f"  graph capture refused ({str(exc).splitlines()[0][:160]}): "
-            f"timed by events around {reps} eager calls")
-        graph = None
+    graph = None
+    if reason is not None:
+        log(f"  not captured: the call synchronizes with the host "
+            f"({reason.splitlines()[0][:120]}); timed by events around "
+            f"{reps} eager calls")
+    else:
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(reps):
+                    fn()
+        except RuntimeError as exc:
+            # a failed capture_end leaves the capture stream current
+            torch.cuda.set_stream(home)
+            log(f"  graph capture refused ({str(exc).splitlines()[0][:160]}):"
+                f" timed by events around {reps} eager calls")
+            graph = None
     times = []
     for _ in range(GRAPH_REPLAYS + 1):
         s = torch.cuda.Event(enable_timing=True)
@@ -630,6 +683,26 @@ def time_call(fn, symbol: str | None = None, reps: int = TIMING_REPS) -> dict:
     return {"device_ms": float(np.median(times[1:])),
             "timed_by": how,
             "event_ms": float(np.median(ev))}
+
+
+def host_sync(fn) -> str | None:
+    """Call ``fn`` once with PyTorch's synchronisation check set to raise:
+    None, or why it synchronizes with the host (a CUDA graph cannot
+    capture such a call).  A capture that fails that way leaves the
+    capture stream current and the caching allocator routing that
+    stream's allocations into the graph's private pool, which
+    ``empty_cache()`` never returns: after phase 2's plain whole searches
+    the run's later phases held some 47 GB there (PERF.md §6, PR 27)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as exc:
+        return str(exc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return None
 
 
 def idle_share(fn, wall_ms: float, what: str) -> None:
@@ -698,8 +771,20 @@ def kernel_rows(checks: dict, launches: dict) -> list:
              "plain_ms": r["tp"]["device_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"],
              "library_ms": None if r["tl"] is None else r["tl"]["device_ms"],
-             "timed_by": timed_by(r)}
+             "timed_by": timed_by(r),
+             **({"checks": [_more_row(x) for x in r["more"]]}
+                if r.get("more") else {})}
             for name, r in checks.items()]
+
+
+def _more_row(x: dict) -> dict:
+    """A kernel's further check in its JSON row: phase 2's form (the
+    check's shape and times), or phase 15b's (a deg-ann cell's numbers)."""
+    if "t" not in x:
+        return x
+    return {"shape": x["shape"], "max_abs_err": x["max_abs_err"],
+            "ms": x["t"]["device_ms"], "plain_ms": x["tp"]["device_ms"],
+            "bound_ms": x["bound_ms"], "bound_by": x["bound_by"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1033,30 +1118,20 @@ def indexed_rows(tensors):
         yield reads
 
 
-def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
-                      V=0, X=0, seeds=1, hop="composed", m_sub=24,
-                      what="serve") -> dict:
-    """The whole-search kernel at one of the main path's shapes, over the
-    phase-2 adjacency (a graph of n_valid vertices) and rows (float32, fp16
-    with ``rows="f16"``, with ``rows="sq8"`` the phase-2 rows encoded under
-    their own sq8 scale, as ``check_gather_dist_q`` encodes them, or with
-    ``rows="pq"`` the phase-2 rows encoded under seeded codebooks of
-    ``m_sub`` subspaces, as ``check_pq_adc`` seeds them: the kernel
-    computes the same function of any codebook, so no k-means fit): B
-    lanes of near-row queries seeded at ``seeds``
-    random vertices, ``X`` excluded ids a lane, a ``V``-slot visited
-    table.  From one ``init``, the kernel against the host loop under
-    ``hop`` with the per-hop kernels (``torch.equal`` on every field of
-    the final state; ``hop="fused"`` runs ``fused_hop`` there over float32
-    rows, which the whole search replaces by the composed hop with the
-    visited filter, and the composed hop over a compressed store)
-    and against the plain version: ids equal on AGREE_FLOOR of the slots,
-    dists within rtol 1e-5 where the ids are equal, and the lanes' total
-    hops and evals within 1 - AGREE_FLOOR of the plain version's (a lane's
-    counters may differ where a distance rounds otherwise, the kernel
-    summing a row's squares in its shuffle order and PyTorch in its own,
-    and a comparison at the radius turns).  A call is timed alone, init
-    and extract outside it.  The bound: the distinct store rows (code rows
+def hold_whole_search(what: str, graph, store, q, excl, st, *, k: int,
+                      eps: float, E: int = 1, hop: str = "composed") -> dict:
+    """The whole-search kernel from one initialised beam ``st`` over
+    ``graph`` and ``store``, held against the host loop under ``hop`` with
+    the per-hop kernels (``torch.equal`` on every field of the final
+    state; ``hop="fused"`` runs ``fused_hop`` there over float32 rows,
+    which the whole search replaces by the composed hop with the visited
+    filter, and the composed hop over a compressed store) and against its
+    plain version: ids equal on AGREE_FLOOR of the slots, dists within
+    rtol 1e-5 where the ids are equal, and the lanes' total hops and evals
+    within 1 - AGREE_FLOOR of the plain version's (a lane's counters may
+    differ where a distance rounds otherwise, the kernel summing a row's
+    squares in its shuffle order and PyTorch in its own, and a comparison
+    at the radius turns).  The bound: the distinct store rows (code rows
     of m_sub bytes over pq, with its codebooks once) and adjacency rows the
     call reads (those the plain version indexes, which may add row 0, its
     filler for a slot it does not score), the sq8 scale once, the
@@ -1064,12 +1139,108 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
     over the memory rate; or the operations, 3 a scored row's dimension
     (over sq8 4, the dequantizing multiply too; over pq: each lane's
     table, 3 a subspace, centroid and dimension, and m_sub adds a scored
-    row).
+    row).  Returns ``run(impl="kernel")`` (one call from ``st``), the
+    kernel's final state, which of ids, dists, hops and evals are
+    ``torch.equal`` to the plain version's, the share of ids that agree,
+    max_abs_err, the lanes whose counters differ, the hops and evals of
+    the call (in all, and the most hops of a lane), the rows read, the
+    bound and the host loop's launches."""
+    import torch
+    from repro_torch.core import beam
+    from repro_torch.kernels.beam_search import ops
+
+    B, L = st.ids.shape
+    V = 0 if st.visited is None else st.visited.shape[1]
+    m, d, adj = q.shape[1], graph.adjacency.shape[1], graph.adjacency
+    names = [f.name for f in dataclasses.fields(st)]
+    state = [getattr(st, name) for name in names]
+    max_hops = beam.default_max_hops(L)
+    kw = dict(n_valid=graph.n, k=k, eps1=beam._eps1(eps), expand_width=E,
+              max_hops=max_hops)
+
+    def run(impl="kernel"):
+        return ops.beam_search(adj, store.data, q, excl, *state, impl=impl,
+                               scale=store.scale, codebooks=store.codebooks,
+                               **kw)
+
+    got = run()
+    counters = launch_counters()
+    before = {n: getattr(mod, a) for n, (mod, a) in counters.items()}
+    host = beam.host_loop(st, graph, store, q, excl, k=k, eps=eps,
+                          max_hops=max_hops, metric="l2", expand_width=E,
+                          hop_backend=hop)
+    sync()
+    host_launches = {n: getattr(mod, a) - before[n]
+                     for n, (mod, a) in counters.items()}
+    for name, g in zip(names, got):
+        h = getattr(host, name)
+        if not ((g is None and h is None) or torch.equal(g, h)):
+            raise AssertionError(f"{what}: {name} differs from the host "
+                                 "loop's")
+    with indexed_rows((adj, store.data)) as reads:
+        plain = run("ref")
+    agree = got[0] == plain[0]
+    same = float(agree.float().mean())
+    if same < AGREE_FLOOR:
+        raise AssertionError(f"{what}: ids equal the plain version's on "
+                             f"only {same:.4f} of slots")
+    if not torch.allclose(got[1][agree], plain[1][agree], rtol=1e-5, atol=0):
+        raise AssertionError(f"{what}: dists differ from the plain "
+                             "version's by more than rtol 1e-5")
+    for name, i in (("hops", 4), ("evals", 5)):
+        a, b = int(got[i].sum()), int(plain[i].sum())
+        if abs(a - b) > (1 - AGREE_FLOOR) * b:
+            raise AssertionError(f"{what}: {a} {name} in all, the plain "
+                                 f"version {b}")
+    lanes = int(((got[4] != plain[4]) | (got[5] != plain[5])).sum())
+    both = agree & torch.isfinite(got[1])
+    err = float((got[1] - plain[1])[both].abs().max()) if both.any() else 0.0
+    hops = got[4] - st.hops
+    scored = int((got[5] - st.evals).sum())
+    n_adj, n_rows = (int(torch.cat(r).unique().numel()) if r else 0
+                     for r in reads)
+    # a row's bytes (m_sub code bytes over pq) and the operations
+    if store.codec == "pq":
+        m_sub = store.data.shape[1]
+        row_bytes, n_ops = m_sub, 3 * B * 256 * m + scored * m_sub
+        books_bytes = store.codebooks.numel() * 4
+    elif store.codec == "sq8":
+        row_bytes, n_ops, books_bytes = m, 4 * scored * m, m * 4
+    else:
+        row_bytes, n_ops, books_bytes = (m * store.data.element_size(),
+                                         3 * scored * m, 0)
+    nb = (n_rows * row_bytes + books_bytes + n_adj * d * 4 + B * L * 10 * 2
+          + B * m * 4 + excl.numel() * 4 + 2 * B * V * 4 + B * 8 * 2)
+    bms, by = bound_ms(nb, n_ops)
+    return dict(run=run, got=got, agree=same, max_abs_err=err, lanes=lanes,
+                same={name: bool(torch.equal(got[i], plain[i])) for name, i
+                      in (("ids", 0), ("dists", 1), ("hops", 4),
+                          ("evals", 5))},
+                hops=int(hops.sum()), hops_max=int(hops.max()), evals=scored,
+                rows_read=n_rows, adj_read=n_adj, bound_ms=bms, bound_by=by,
+                host_launches=host_launches)
+
+
+def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
+                      V=0, X=0, seeds=1, hop="composed", m_sub=24,
+                      what="serve") -> dict:
+    """The whole-search kernel at one of the main path's shapes, over the
+    phase-2 adjacency (a graph of n_valid vertices) and rows (float32, fp16
+    with ``rows="f16"``, bfloat16 with ``rows="bf16"`` (the ``bf16vecs``
+    cells' row type), with ``rows="sq8"`` the phase-2 rows encoded under
+    their own sq8 scale, as ``check_gather_dist_q`` encodes them, or with
+    ``rows="pq"`` the phase-2 rows encoded under seeded codebooks of
+    ``m_sub`` subspaces, as ``check_pq_adc`` seeds them: the kernel
+    computes the same function of any codebook, so no k-means fit): B
+    lanes of near-row queries seeded at ``seeds``
+    random vertices, ``X`` excluded ids a lane, a ``V``-slot visited
+    table.  From one ``init``, the kernel held against the host loop and
+    its plain version, and bounded, by ``hold_whole_search``.  A call is
+    timed alone, init and extract outside it.
     ``host_launches`` holds the kernel launches of the host-loop run."""
     import torch
     from repro_torch.core import beam
     from repro_torch.core.graph import DEGraph
-    from repro_torch.kernels.beam_search import ops
     from repro_torch.quant import codec, pq
     from repro_torch.quant.store import VectorStore
 
@@ -1090,6 +1261,8 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
     elif rows == "f16":
         store = VectorStore(data=inp["vectors"].to(torch.float16),
                             codec="fp16")
+    elif rows == "bf16":            # the exact store over bfloat16 rows
+        store = VectorStore(data=inp["vectors"].to(torch.bfloat16))
     else:
         store = VectorStore(data=inp["vectors"])
     q = _near_queries(inp, B, device)
@@ -1102,81 +1275,23 @@ def check_beam_search(inp, device, B, L, *, E=1, k=K, eps=EPS, rows="f32",
             torch.full((B, 1), INVALID, dtype=torch.int32, device=device))
     st = beam.init(store, q, ids((B, seeds)), excl, n_valid, beam_width=L,
                    metric="l2", visited_size=V)
-    names = [f.name for f in dataclasses.fields(st)]
-    state = [getattr(st, name) for name in names]
-    max_hops = beam.default_max_hops(L)
-    kw = dict(n_valid=n_valid, k=k, eps1=beam._eps1(eps), expand_width=E,
-              max_hops=max_hops)
-
-    def run(impl="kernel"):
-        return ops.beam_search(adj, store.data, q, excl, *state, impl=impl,
-                               scale=store.scale, codebooks=store.codebooks,
-                               **kw)
-
-    got = run()
-    counters = launch_counters()
-    before = {n: getattr(mod, a) for n, (mod, a) in counters.items()}
-    host = beam.host_loop(st, graph, store, q, excl, k=k, eps=eps,
-                          max_hops=max_hops, metric="l2", expand_width=E,
-                          hop_backend=hop)
-    sync()
-    host_launches = {n: getattr(mod, a) - before[n]
-                     for n, (mod, a) in counters.items()}
-    for name, g in zip(names, got):
-        h = getattr(host, name)
-        if not ((g is None and h is None) or torch.equal(g, h)):
-            raise AssertionError(f"beam_search ({what}, B={B} L={L} E={E} "
-                                 f"{rows} V={V} {hop}): {name} differs from "
-                                 "the host loop's")
-    with indexed_rows((adj, store.data)) as reads:
-        plain = run("ref")
-    agree = got[0] == plain[0]
-    same = float(agree.float().mean())
-    if same < AGREE_FLOOR:
-        raise AssertionError(f"beam_search ({what}): ids equal the plain "
-                             f"version's on only {same:.4f} of slots")
-    if not torch.allclose(got[1][agree], plain[1][agree], rtol=1e-5, atol=0):
-        raise AssertionError(f"beam_search ({what}): dists differ from the "
-                             "plain version's by more than rtol 1e-5")
-    for name, i in (("hops", 4), ("evals", 5)):
-        a, b = int(got[i].sum()), int(plain[i].sum())
-        if abs(a - b) > (1 - AGREE_FLOOR) * b:
-            raise AssertionError(f"beam_search ({what}): {a} {name} in all, "
-                                 f"the plain version {b}")
-    lanes = int(((got[4] != plain[4]) | (got[5] != plain[5])).sum())
-    both = agree & torch.isfinite(got[1])
-    err = float((got[1] - plain[1])[both].abs().max()) if both.any() else 0.0
-    t = time_call(run, "beam_search_kernel")
-    tp = time_call(lambda: run("ref"), reps=2)
-    hops = got[4] - st.hops
-    scored = int((got[5] - st.evals).sum())
-    expanded = int(hops.sum())
-    n_adj, n_rows = (int(torch.cat(r).unique().numel()) if r else 0
-                     for r in reads)
-    # a row's bytes (m_sub code bytes over pq) and the operations
-    label = rows
-    if rows == "pq":
-        row_bytes, n_ops = m_sub, 3 * B * 256 * m + scored * m_sub
-        books_bytes = store.codebooks.numel() * 4
-        label = f"pq m_sub={m_sub}"
-    elif rows == "sq8":
-        row_bytes, n_ops, books_bytes = m, 4 * scored * m, m * 4
-    else:
-        row_bytes, n_ops, books_bytes = (m * store.data.element_size(),
-                                         3 * scored * m, 0)
-    nb = (n_rows * row_bytes + books_bytes + n_adj * d * 4 + B * L * 10 * 2
-          + B * m * 4 + excl.numel() * 4 + 2 * B * V * 4 + B * 8 * 2)
-    bms, by = bound_ms(nb, n_ops)
+    h = hold_whole_search(f"beam_search ({what}, B={B} L={L} E={E} {rows} "
+                          f"V={V} {hop})", graph, store, q, excl, st, k=k,
+                          eps=eps, E=E, hop=hop)
+    t = time_call(h["run"], "beam_search_kernel")
+    tp = time_call(lambda: h["run"]("ref"), reps=2)
+    label = rows if rows != "pq" else f"pq m_sub={m_sub}"
+    err, bms, by = h["max_abs_err"], h["bound_ms"], h["bound_by"]
     return dict(name="beam_search", max_abs_err=err, t=t, tp=tp, tl=None,
-                bound_ms=bms, bound_by=by, host_launches=host_launches,
+                bound_ms=bms, bound_by=by, host_launches=h["host_launches"],
                 shape=f"{what}: B={B} L={L} E={E} k={k} eps={eps} d={d} "
                       f"m={m} {label} V={V} X={X} {hop}, "
-                      f"{expanded / B:.1f} hops and "
-                      f"{scored / B:.1f} evals a lane, at most "
-                      f"{int(hops.max())} hops; {n_rows} distinct rows and "
-                      f"{n_adj} adjacency rows read; ids equal to the plain "
-                      f"version's on {same:.4%} of slots, hops and evals on "
-                      f"{B - lanes} of {B} lanes",
+                      f"{h['hops'] / B:.1f} hops and "
+                      f"{h['evals'] / B:.1f} evals a lane, at most "
+                      f"{h['hops_max']} hops; {h['rows_read']} distinct rows "
+                      f"and {h['adj_read']} adjacency rows read; ids equal "
+                      f"to the plain version's on {h['agree']:.4%} of slots, "
+                      f"hops and evals on {B - h['lanes']} of {B} lanes",
                 tol="every state field equal to the host loop's "
                     "(torch.equal); ids >= 99% equal to the plain version, "
                     "dists rtol 1e-5 there, total hops and evals within 1%")
@@ -1449,6 +1564,8 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES,
                check_beam_search(inp, device, B, L),
                check_beam_search(inp, device, B, L, rows="f16",
                                  what="serve fp16"),
+               check_beam_search(inp, device, B, L, rows="bf16",
+                                 what="serve bf16"),
                check_beam_search(inp, device, B, L, E=4, what="multi-e4"),
                check_beam_search(inp, device, B, L, E=2, V=PHASE2["V"],
                                  what="visited"),
@@ -1501,7 +1618,9 @@ def phase2(device, n_build=N_AUDIO, n_queries=N_QUERIES,
             "gather_dist_q": by_name["gather_dist_q"][0],
             "pq_adc": by_name["pq_adc"][0],
             "l2_topk": by_name["l2_topk"][0],
-            "beam_search": by_name["beam_search"][0]}
+            "beam_search": dict(by_name["beam_search"][0],
+                                more=[r for r in by_name["beam_search"]
+                                      if "bf16" in r["shape"]])}
     return rows, host_loop
 
 
@@ -3810,6 +3929,59 @@ def peak_memory(reset: bool = False) -> int | None:
     return torch.cuda.max_memory_allocated()
 
 
+def card_memory(what: str) -> dict:
+    """Log and return the card's allocated and reserved bytes."""
+    import torch
+
+    a, r = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    log(f"{what}: memory allocated {a:,} bytes, reserved {r:,} bytes")
+    return {"allocated": a, "reserved": r}
+
+
+def memory_left(before: dict, after: dict) -> str | None:
+    """What the card holds after phases 8-12 beyond MEMORY_SLACK, from
+    ``card_memory`` before and after: allocated or reserved bytes grown,
+    or reserved bytes beyond the allocated (segments that ``empty_cache``
+    could not return, as a CUDA graph's private pool); None when
+    nothing."""
+    grown = {k: after[k] - before[k] for k in ("allocated", "reserved")}
+    faults = [f"{g:,} bytes more {k}" for k, g in grown.items()
+              if g > MEMORY_SLACK]
+    if after["reserved"] - after["allocated"] > MEMORY_SLACK:
+        faults.append(f"{after['reserved'] - after['allocated']:,} bytes "
+                      "reserved beyond the allocated")
+    return "; ".join(faults) or None
+
+
+def memory_holders(top: int = 8) -> None:
+    """Log what holds the card: the ``top`` largest segments of the caching
+    allocator's snapshot, each with its live blocks (size and the frames of
+    this repo that allocated it, when
+    ``torch.cuda.memory._record_memory_history`` ran).  A segment is
+    returned to the card only when no block of it is live, so a small live
+    block pins all of its segment through ``empty_cache()``."""
+    import torch
+
+    snap = torch.cuda.memory._snapshot()
+    segs = sorted(snap["segments"], key=lambda g: -g["total_size"])
+    live = [b for g in segs for b in g["blocks"]
+            if b["state"].startswith("active")]
+    log(f"memory holders: {len(segs)} segments of "
+        f"{sum(g['total_size'] for g in segs):,} bytes hold {len(live)} live "
+        f"blocks of {sum(b['size'] for b in live):,} bytes")
+    for g in segs[:top]:
+        blocks = [b for b in g["blocks"] if b["state"].startswith("active")]
+        log(f"  segment {g['total_size']:,} bytes ({g['segment_type']} pool, "
+            f"stream {g['stream']}): {len(blocks)} live blocks, "
+            f"{sum(b['size'] for b in blocks):,} bytes")
+        for blk in sorted(blocks, key=lambda b: -b["size"])[:4]:
+            mine = [f"{os.path.basename(f['filename'])}:{f['line']}:"
+                    f"{f['name']}" for f in blk.get("frames", [])
+                    if ROOT in f.get("filename", "")]
+            log(f"    block {blk['size']:,} bytes: "
+                f"{' <- '.join(mine[:5]) or 'no frames of this repo'}")
+
+
 def recsys_setup(device, *, reduced=False, p99=None, bulk=None,
                  n_candidates=None, n_batches=RECSYS_BATCHES) -> dict:
     """Per model of RECSYS_ARCHS: its config (the published one, or
@@ -4589,6 +4761,33 @@ def train_launcher_phase(device, tmp, tag="phase12d", **kw) -> dict:
         f"{first.returncode} on its injected failure; the rerun "
         f"{resumed[-1][7:]}, {final[-1]} ({secs:.1f} s for both)")
     return dict(seconds=secs, final=last, first=first_loss)
+
+
+def memory_probe(device="cuda", with_phase2: bool = True) -> None:
+    """Phases 2, 8 and 12 as ``main`` runs them (8 and 12 alone without
+    ``with_phase2``), under the caching allocator's history, then what
+    still holds the card (``memory_holders``).
+    ``python3 -c "import chip_smoke as cs; cs.memory_probe()"``."""
+    import torch
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    torch.cuda.memory._record_memory_history(max_entries=500_000)
+    ops = launch_counters()
+    count = functools.partial(counted, ops, dict.fromkeys(ops, 0))
+    if with_phase2:
+        phase2(device)
+    card_memory("before phase 8")
+    rec = recsys_setup(device)
+    bag_checks(rec, device)
+    recsys_phase(rec, device, count)
+    del rec
+    torch.cuda.empty_cache()
+    card_memory("after phase 8")
+    training_phase(device, count)
+    torch.cuda.empty_cache()
+    card_memory("after phase 12")
+    memory_holders()
 
 
 def training_phase(device, count=None, *, reduced=False, batch=None,
@@ -5915,6 +6114,384 @@ def gnn_in_child(device, **kw) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the cell builder at world size 1 (the (1, 1) mesh), the deg-ann
+# cells at 2^24 vectors, and the serve / train cells through their fn
+# ---------------------------------------------------------------------------
+def cell_list() -> list:
+    """(arch, shape, variant) of 15a: every cell of the registry, the
+    deg-ann shapes, and each variant tests/test_cells_debug_mesh.py
+    builds."""
+    from repro_torch.configs import all_cells
+    from repro_torch.launch.cells import DEG_CELLS
+
+    return ([(a, s, "") for a, s in all_cells()]
+            + [("deg-ann", s, "") for s in DEG_CELLS]
+            + [v for v in CELL_VARIANTS])
+
+
+def _arg_roles(prog) -> tuple:
+    kind = prog.kind
+    if prog.meta["family"] == "deg":
+        return ("adjacency", "vectors", "n", "seeds", "queries",
+                "exclude")[:len(prog.args)]
+    if len(prog.args) == 3 and kind not in ("decode", "long_decode",
+                                            "retrieval"):
+        return ("parameters", "optimizer state", "batch")
+    return {"prefill": ("parameters", "tokens"),
+            "decode": ("parameters", "cache", "token"),
+            "long_decode": ("parameters", "cache", "token"),
+            "recsys_serve": ("parameters", "batch"),
+            "retrieval": ("parameters", "batch", "candidates")}[kind]
+
+
+def cells_build_phase(mesh, card_bytes: int) -> dict:
+    """15a: every cell of ``cell_list()`` built on ``mesh`` with its
+    placements, or its ``SkippedCell`` held to ``spec.skip``; each cell's
+    argument bytes by role against ``card_bytes``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import SkippedCell, build_cell
+
+    out, fit = {}, []
+    t0 = time.perf_counter()
+    for arch, shape, variant in cell_list():
+        tag = f"{arch} {shape}" + (f" {variant}" if variant else "")
+        try:
+            prog = build_cell(arch, shape, mesh, variant)
+        except SkippedCell as exc:
+            if str(exc) != get_arch(arch).skip.get(shape):
+                raise AssertionError(f"phase15a {tag}: skipped for {exc}")
+            log(f"phase15a {tag}: skipped ({exc})")
+            continue
+        prog.placements(mesh)
+        nb = prog.arg_bytes()
+        total = sum(nb)
+        out[(arch, shape, variant)] = dict(kind=prog.kind, bytes=nb,
+                                           total=total)
+        if total <= card_bytes:
+            fit.append(tag)
+        log(f"phase15a {tag} ({prog.kind}): "
+            + ", ".join(f"{r} {b:,}" for r, b in zip(_arg_roles(prog), nb))
+            + f"; {total:,} bytes, {total / card_bytes:.3f} of the card's "
+            f"{card_bytes:,}")
+    log(f"phase15a {len(out)} cells built with their placements in "
+        f"{time.perf_counter() - t0:.2f} s; {len(fit)} hold their arguments "
+        f"within the card: {', '.join(fit)}")
+    return out
+
+
+def hamiltonian_adjacency(n: int, degree: int, gen, device):
+    """A ``degree``-regular graph on n vertices drawn on ``device``:
+    degree / 2 random Hamiltonian cycles (``torch.randperm``), each giving
+    a vertex its successor and its predecessor.  Rare duplicate edges
+    between cycles are kept.  (n, degree) int32."""
+    import torch
+
+    adj = torch.empty((n, degree), dtype=torch.int32, device=device)
+    for c in range(degree // 2):
+        perm = torch.randperm(n, generator=gen, device=device)
+        adj[perm, 2 * c] = torch.roll(perm, -1).to(torch.int32)
+        adj[perm, 2 * c + 1] = torch.roll(perm, 1).to(torch.int32)
+        del perm
+    return adj
+
+
+def _same_args(what: str, args, prog) -> None:
+    """Real arguments against the cell's meta ones, leaf for leaf."""
+    from repro_torch.train import tree as T
+
+    got = [(p, tuple(t.shape), t.dtype) for a in args
+           for p, t in T.leaves_with_path(a)]
+    want = [(p, tuple(t.shape), t.dtype) for a in prog.args
+            for p, t in T.leaves_with_path(a)]
+    if got != want:
+        bad = [(g, w) for g, w in zip(got, want) if g != w][:3]
+        raise AssertionError(f"{what}: the arguments differ from the cell's "
+                             f"meta arguments: {bad or (len(got), len(want))}")
+
+
+def deg_cell_inputs(prog, vecs, adj, gen, device, batch=None) -> tuple:
+    """The deg-ann cell's arguments at world size 1 (S = 1): the one
+    shard's adjacency and vectors (in the cell's row type), n, the seed
+    vertex 0, and the cell's batch of queries: fresh normal rows, or for
+    explore_16m the rows of each lane's first excluded id (the paper's
+    indexed query) with ``exclude`` random ids; ``batch`` cuts the batch
+    (a rehearsal)."""
+    import torch
+
+    c = prog.meta
+    vdt = prog.args[1].dtype
+    n = adj.shape[0]
+    rows = vecs.to(vdt)
+    nt = torch.tensor([n], dtype=torch.int32, device=device)
+    seeds = torch.zeros((1,), dtype=torch.int32, device=device)
+    B = batch or c["batch"]
+    if c.get("exclude"):
+        excl = torch.randint(0, n, (B, c["exclude"]), generator=gen,
+                             device=device, dtype=torch.int32)
+        q = rows[excl[:, 0].long()]
+        return (adj[None], rows[None], nt, seeds, q, excl)
+    q = torch.randn((B, c["dim"]), generator=gen, device=device).to(vdt)
+    return (adj[None], rows[None], nt, seeds, q)
+
+
+def deg_lanes(prog, args) -> dict:
+    """The local search of the cell's lanes as the sharded step runs it at
+    S = 1 (``distributed/index.py``): the graph, the store,
+    float32 queries, seeds (the lane's first excluded id before the seed
+    vertex where the cell excludes), the exclude list, L and k."""
+    import torch
+    from repro_torch.core import beam
+    from repro_torch.core.graph import DEGraph
+
+    c = prog.meta
+    adj, rows, n, seed, q = args[:5]
+    excl = args[5] if len(args) > 5 else None
+    q = q.to(torch.float32)
+    lanes = q.shape[0]
+    col = seed[:1].reshape(1, 1).expand(lanes, 1)
+    seeds = col.contiguous() if excl is None else torch.cat(
+        [excl[:, :1], col], 1)
+    n_ex = 0 if excl is None else excl.shape[1]
+    L = max(c["beam"], c["k"], seeds.shape[1], c["k"] + n_ex)
+    if excl is None:
+        excl = torch.full((lanes, 1), INVALID, dtype=torch.int32,
+                          device=q.device)
+    graph = DEGraph(adjacency=adj[0], weights=torch.zeros(
+        (), device=q.device).expand(adj.shape[1:]), n=int(n[0]))
+    return dict(graph=graph, rows=rows[0], q=q, seeds=seeds, excl=excl, L=L,
+                k=c["k"], max_hops=beam.default_max_hops(L))
+
+
+def hold_deg_lanes(what: str, ln: dict) -> dict:
+    """The whole-search kernel on a deg-ann cell's lanes from one ``init``,
+    held and bounded by ``hold_whole_search`` as phase 2 holds it, and one
+    call of the kernel and one of its plain version timed by CUDA events
+    (init and extract outside them)."""
+    from repro_torch.core import beam
+    from repro_torch.quant.store import VectorStore
+
+    store = VectorStore(data=ln["rows"])
+    st = beam.init(store, ln["q"], ln["seeds"], ln["excl"], ln["graph"].n,
+                   beam_width=ln["L"], metric="l2")
+    h = hold_whole_search(what, ln["graph"], store, ln["q"], ln["excl"], st,
+                          k=ln["k"], eps=DEG_EPS)
+    _, ms = _event_timed(h["run"])
+    _, plain_ms = _event_timed(h["run"], "ref")
+    log(f"phase15b {what}: {len(ln['q'])} lanes, the kernel torch.equal to "
+        f"the host loop on every field; against the plain version ids "
+        f"equal on {h['agree']:.4%} of slots, torch.equal: {h['same']}, "
+        f"max_abs_err {h['max_abs_err']:.3g}, hops and evals differ on "
+        f"{h['lanes']} lanes; {h['rows_read']:,} distinct rows and "
+        f"{h['adj_read']:,} adjacency rows read; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events, one call each), bound {h['bound_ms']:.4f} ms "
+        f"({h['bound_by']}), {h['bound_ms'] / ms:.4f} of the call")
+    hops, evals = h["got"][4].float(), h["got"][5].float()
+    log(f"phase15b {what}: hops a lane mean {float(hops.mean()):.2f} max "
+        f"{int(hops.max())}, evals mean {float(evals.mean()):.2f} max "
+        f"{int(evals.max())}")
+    return dict(same=h["same"], agree=h["agree"],
+                max_abs_err=h["max_abs_err"], kernel_ms=ms,
+                plain_ms=plain_ms, bound_ms=h["bound_ms"], bound_by=h["bound_by"],
+                rows_read=h["rows_read"], adj_read=h["adj_read"],
+                hops_mean=float(hops.mean()), hops_max=int(hops.max()),
+                evals_mean=float(evals.mean()), evals_max=int(evals.max()))
+
+
+def deg_cells_phase(mesh, device, count, *, n=None, batch=None,
+                    reps=DEG_REPS) -> dict:
+    """15b: the deg-ann cells (and search_16m under bf16vecs) at their full
+    size through ``build_cell(...).fn`` on ``mesh``: 2^24 normal vectors of
+    dim 128 and a 30-regular graph of 15 random Hamiltonian cycles drawn on
+    the card from a generator seeded 0, the cell's batch of 4,096 (``n``
+    and ``batch`` cut both for a rehearsal).  A random graph is no DEG: no
+    recall.  Per cell: the arguments held leaf for leaf to the cell's meta
+    ones, one counted call, ``reps`` calls timed by CUDA events (ms, QPS),
+    peak bytes, every id in range and no excluded id returned; then the
+    local search of every lane held, timed and bounded by
+    ``hold_deg_lanes``, with its hops and evals (mean, max)."""
+    import torch
+    from repro_torch.launch.cells import DEG_CELLS, build_cell
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    N = n or DEG_CELLS["search_16m"]["n_total"]
+    d, m = DEG_CELLS["search_16m"]["degree"], DEG_CELLS["search_16m"]["dim"]
+    t0 = time.perf_counter()
+    vecs = torch.randn((N, m), generator=gen, device=device)
+    adj = hamiltonian_adjacency(N, d, gen, device)
+    sync()
+    log(f"phase15b {N:,} vectors of dim {m} ({vecs.numel() * 4:,} bytes) "
+        f"and a {d}-regular graph of {d // 2} Hamiltonian cycles "
+        f"({adj.numel() * 4:,} bytes) drawn on {device} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for shape, variant in DEG_RUN:
+        what = shape + (f" {variant}" if variant else "")
+        prog = build_cell("deg-ann", shape, mesh, variant)
+        args = deg_cell_inputs(prog, vecs, adj, gen, device, batch)
+        if n is None and batch is None:
+            _same_args(f"phase15b {what}", args, prog)
+        peak_memory(reset=True)
+        ids, dists = count(prog.fn, *args)
+        sync()
+        peak = peak_memory()
+        B = ids.shape[0]
+        if not (((ids >= 0) & (ids < N)).all() and torch.isfinite(dists).all()
+                and (dists[:, 1:] >= dists[:, :-1]).all()):
+            raise AssertionError(f"phase15b {what}: ids out of range or "
+                                 "dists not finite and ascending")
+        if len(args) > 5 and (ids[:, :, None] == args[5][:, None, :]).any():
+            raise AssertionError(f"phase15b {what}: an excluded id returned")
+        ms = []
+        for _ in range(reps):
+            _, t = _event_timed(prog.fn, *args)
+            ms.append(t)
+        med = float(np.median(ms))
+        log(f"phase15b {what} (k={prog.meta['k']} "
+            f"exclude={prog.meta.get('exclude', 0)} "
+            f"{str(args[1].dtype)[6:]} rows, B={B}): {_ms_summary(ms)} a "
+            f"call (CUDA events), {B / med * 1e3:,.1f} queries/s; peak "
+            f"memory {peak:,} bytes")
+        held = hold_deg_lanes(what, deg_lanes(prog, args))
+        out[what] = dict(ms=med, qps=B / med * 1e3, peak=peak,
+                         rows=str(args[1].dtype)[6:], **held)
+        del args, ids, dists
+    return out
+
+
+def _equal_trees(what: str, got, want) -> None:
+    """Two trees leaf for leaf: the same dtype and torch.equal."""
+    import torch
+    from repro_torch.train import tree as T
+
+    bad = [T.key_of(p) for (p, a), b in zip(T.leaves_with_path(got),
+                                             T.leaves(want))
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    if bad or len(T.leaves(got)) != len(T.leaves(want)):
+        raise AssertionError(f"{what}: differs from the unsharded function "
+                             f"at {bad[:5]}")
+
+
+def cells_run_phase(mesh, device, count, *, reduced=False,
+                    steps=CELL_TRAIN_STEPS) -> dict:
+    """15c: cells through their ``fn`` on real tensors whose shapes equal
+    the meta arguments, each torch.equal to the port's unsharded function
+    from the same state: DIN and DCN-v2 serve_p99 (``recsys.forward``),
+    DIN train_batch for ``steps`` steps (``launch.train``'s step over
+    ``loss_fn``, from the same weights, state and batches), and EGNN
+    full_graph_sm (plain and halo: ``make_train_step`` over ``loss_fn``)
+    and molecule.  ``reduced`` takes the configs' ``reduced()`` widths and
+    batches of 256 (a rehearsal on the CPU).  The cells' bag_lookup and
+    bag_lookup_bwd launches go through ``count``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.recsys import CriteoLikeStream
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.train import train_batch_trainer
+    from repro_torch.models import egnn as E
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.steps import make_train_step
+
+    out = {}
+    small = {"batch": 256} if reduced else {}
+    for arch in RECSYS_ARCHS:
+        spec = get_arch(arch)
+        model = spec.reduced() if reduced else None
+        prog = build_cell(arch, "serve_p99", mesh, model=model)
+        cfg = prog.meta["cfg"]
+        rec = R.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                            device)
+        b = R.as_tensors(CriteoLikeStream(cfg, seed=0).batch(
+            0, prog.meta["batch"]), device)
+        del b["label"]
+        args = (rec.params(), b)
+        _same_args(f"phase15c {arch} serve_p99", args, prog)
+        t0 = time.perf_counter()
+        got = count(prog.fn, *args)
+        sync()
+        secs = time.perf_counter() - t0
+        _equal_trees(f"phase15c {arch} serve_p99", got, R.forward(rec, b))
+        log(f"phase15c {arch} serve_p99 cell fn: {prog.meta['batch']} "
+            f"logits torch.equal to recsys.forward ({secs * 1e3:.3f} ms)")
+        out[f"{arch} serve_p99"] = secs
+    # DIN train_batch: the cell's step against the trainer's
+    prog = build_cell("din", "train_batch", mesh,
+                      model=get_arch("din").reduced() if reduced else None)
+    B = small.get("batch", prog.meta["batch"])
+    step, params, state, batch_fn = train_batch_trainer(
+        "din", device, seed=0, batch=B, cfg=prog.meta["cfg"])
+    if not reduced:
+        _same_args("phase15c din train_batch", (params, state, batch_fn(0)),
+                   prog)
+    p1, s1 = _clone_tree(params), _clone_tree(state)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        (p1, s1), m1 = count(prog.fn, p1, s1, batch_fn(i))
+        (params, state), m0 = step(params, state, batch_fn(i))
+        _equal_trees(f"phase15c din train_batch step {i}",
+                     {"params": p1, "opt": s1, "loss": m1["loss"]},
+                     {"params": params, "opt": state, "loss": m0["loss"]})
+    sync()
+    log(f"phase15c din train_batch cell fn: {steps} steps of {B:,}, "
+        f"parameters, optimizer state and losses torch.equal to the "
+        f"trainer's ({time.perf_counter() - t0:.2f} s for both chains)")
+    del p1, s1, params, state, batch_fn
+    # EGNN: full_graph_sm (plain and halo) and molecule
+    spec = get_arch("egnn")
+    for shape, variant in (("full_graph_sm", ""), ("full_graph_sm", "halo"),
+                           ("molecule", "")):
+        prog = build_cell("egnn", shape, mesh, variant,
+                          model=spec.reduced() if reduced else None)
+        cfg = prog.meta["cfg"]
+        raw = (molecule_batch(cfg) if shape == "molecule"
+               else _halo_batch(full_graph_batch(cfg, device), 1))
+        if "edge_valid" not in raw:
+            raw["edge_valid"] = np.ones(raw["edges"].shape[:1]
+                                        + raw["edges"].shape[2:], bool)
+        batch = _on(raw, device)
+        params = E.init_params(cfg, torch.Generator(
+            device=device).manual_seed(0), device)
+        opt = adamw(1e-3)
+        args = (params, opt.init(params), batch)
+        _same_args(f"phase15c egnn {shape} {variant}", args, prog)
+        ref = make_train_step(lambda p, bt: E.loss_fn(p, bt, cfg), opt)
+        p0, s0 = _clone_tree(params), _clone_tree(args[1])
+        (p1, s1), m1 = prog.fn(*args)
+        (p0, s0), m0 = ref(p0, s0, batch)
+        _equal_trees(f"phase15c egnn {shape} {variant}",
+                     {"params": p1, "opt": s1, "loss": m1["loss"]},
+                     {"params": p0, "opt": s0, "loss": m0["loss"]})
+        log(f"phase15c egnn {shape}{' ' + variant if variant else ''} cell "
+            f"fn ({str(cfg.dtype)[6:]}): one step, parameters, optimizer "
+            f"state and loss {float(m1['loss']):.6f} torch.equal to "
+            "make_train_step over loss_fn")
+    return out
+
+
+def cells_phase(device, count, *, deg=None, reduced=False) -> dict:
+    """Phase 15 on a world-size-1 mesh (1, 1) named ("data", "model"),
+    NCCL on the card (gloo on the CPU): 15a, 15b, 15c."""
+    import torch
+    from repro_torch.launch.mesh import axis_group, make_mesh
+    from repro_torch.launch.ranks import process_group
+
+    backend = "nccl" if str(device) != "cpu" else "gloo"
+    card = (torch.cuda.get_device_properties(0).total_memory
+            if str(device) != "cpu" else CARD_BYTES)
+    t0 = time.perf_counter()
+    with process_group(backend):
+        mesh = make_mesh(CELLS_MESH, ("data", "model"), device)
+        got = axis_group(mesh, ("data", "model")).backend
+        if got != backend:
+            raise AssertionError(f"phase15: group {got}, want {backend}")
+        built = cells_build_phase(mesh, card)
+        ran = deg_cells_phase(mesh, device, count, **(deg or {}))
+        run = cells_run_phase(mesh, device, count, reduced=reduced)
+    log(f"phase15 done in {time.perf_counter() - t0:.1f} s")
+    return dict(built=built, deg=ran, run=run)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=N_AUDIO,
@@ -5946,9 +6523,13 @@ def main(argv=None) -> int:
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # phase 13 first, in processes of its own, while the card holds
-    # nothing: after phase 12 this process kept about 47 GB of the card
-    # that empty_cache() did not return (PERF.md §6)
+    # phase 13 first, each served model in a process of its own, a fresh
+    # CUDA context.  The 47 GB this process once kept through
+    # empty_cache() after phase 12 were a CUDA graph's private pool: a
+    # capture that failed in phase 2 (the plain whole search reads to the
+    # host) left the allocator routing the capture stream, then current,
+    # into it; time_call no longer captures a call that synchronizes
+    # (host_sync), and the check after phase 12 holds the memory
     lm_phase(device)
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 13 done")
     # phase 14 in a process of its own too, while this one holds only the
@@ -5971,6 +6552,7 @@ def main(argv=None) -> int:
         log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
 
     stamp("phases 1-2")
+    before8 = card_memory("before phase 8")
     rec = recsys_setup(device)
     checks["bag_lookup"] = bag_checks(rec, device)[0]
     recsys_phase(rec, device, count)
@@ -5979,7 +6561,23 @@ def main(argv=None) -> int:
     stamp("phase 8")
     checks["bag_lookup_bwd"] = training_phase(device, count)["bwd"]
     torch.cuda.empty_cache()
+    after12 = card_memory("after phase 12")
+    left = memory_left(before8, after12)
+    if left:
+        memory_holders()
+        raise AssertionError(f"phases 8 and 12 left {left}")
     stamp("phase 12")
+    cells = cells_phase(device, count)
+    torch.cuda.empty_cache()
+    checks["beam_search"]["more"] += [
+        dict(shape=f"phase15b deg-ann {what}: B=4096 over 2^24 rows",
+             ms=r["kernel_ms"], cell_ms=r["ms"],
+             **{k: r[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "qps", "peak", "hops_mean",
+                                  "hops_max", "evals_mean", "evals_max",
+                                  "rows_read", "agree")})
+        for what, r in cells["deg"].items()]
+    stamp("phase 15")
     idx, base, queries, _ = build_phase(args.n, args.queries, device, count)
     wave_ids = wave_phase(idx, queries)
     build_phase(N_HOST, 16, device, count, device_extend=False,

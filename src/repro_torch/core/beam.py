@@ -299,11 +299,12 @@ def search_kernel_eligible(vectors, metric: str, hop_backend: str, device,
                            expand_width: int = 1, n_exclude: int = 0,
                            visited_size: int = 0) -> bool:
     """Does :func:`beam_search` run as one ``beam_search`` kernel launch?
-    On a CUDA device, for either hop backend over a float32, fp16, sq8 or
-    pq store (of at most ``MAX_SUBSPACES`` subspaces) under the l2 or
-    sqeuclidean metric, when one lane's beam of ``beam_width`` entries, its
-    ``expand_width`` x ``degree`` candidates, its ``n_exclude`` excluded
-    ids, its ``visited_size``-slot table, the sq8 store's scale and the pq
+    On a CUDA device, for either hop backend over a float32 (float32,
+    float16 or bfloat16 rows), fp16, sq8 or pq store (of at most
+    ``MAX_SUBSPACES`` subspaces) under the l2 or sqeuclidean metric, when
+    one lane's beam of ``beam_width`` entries, its ``expand_width`` x
+    ``degree`` candidates, its ``n_exclude`` excluded ids, its
+    ``visited_size``-slot table, the sq8 store's scale and the pq
     store's sub-distance table fit the shared memory of one block;
     everything else runs the host loop.  The shapes default to an empty
     beam, for a caller that asks about the configuration alone."""

@@ -18,8 +18,15 @@ result on every rank:
 
 Inside a loss that autograd differentiates, the transposes JAX derives
 are written out: :func:`all_gather_rows` (backward a reduce-scatter),
+:func:`gather_blocks` (backward this rank's block of a cotangent every
+rank holds alike), :func:`take_block` (this rank's block of a value every
+rank holds alike; backward the blocks' cotangents gathered),
 :func:`psum_forward` (backward the identity) and :func:`replicated` (a
 parameter's gradient summed over the group).
+
+A factory resolves its groups at its function's first call, so a step
+built over a ``launch.mesh.AbstractMesh`` builds (the cell builder's
+shapes), and runs only over a ``DeviceMesh``.
 
 Under gloo a CUDA tensor goes through a host copy (gloo's CUDA support
 does not cover every op); NCCL takes it in place.
@@ -31,7 +38,7 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.core.distances import _no_tf32
-from repro_torch.launch.mesh import AxisGroup, axis_group
+from repro_torch.launch.mesh import AxisGroup, lazy_groups
 from repro_torch.train.tree import tree_map
 
 
@@ -78,6 +85,43 @@ def all_gather_rows(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     summed over the group.  Gloo has no ``reduce_scatter``, so the
     backward is an ``all_reduce`` and this rank's slice of it."""
     return _GatherRows.apply(t, ag)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag):
+        ctx.ag = ag
+        return all_gather_cat(t, ag, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return block(g, ctx.ag, 0), None
+
+
+def gather_blocks(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """Every rank's block of rows, concatenated, for a result that every
+    rank then uses alike (the sharded lookup's batch): the cotangent each
+    rank gets is the whole one, so the backward takes this rank's block
+    of it, with no sum."""
+    return _GatherBlocks.apply(t, ag)
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag):
+        ctx.ag = ag
+        return block(t, ag, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.ag, 0), None
+
+
+def take_block(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """This rank's block of rows of a value every rank computes alike (the
+    bag's weights, from the whole batch's attention): the backward gathers
+    every rank's block cotangent, so each rank holds the whole one."""
+    return _TakeBlock.apply(t, ag)
 
 
 class _PsumForward(torch.autograd.Function):
@@ -156,10 +200,10 @@ def sharded_brute_topk(mesh, *, k: int, shard_axes: Sequence[str],
     ``metric='ip'`` scores by inner product (descending); ``'l2'`` by
     squared euclidean distance (ascending), in the expanded form
     ``|q|^2 + |x|^2 - 2 q.x`` with TF32 off."""
-    shards = axis_group(mesh, tuple(shard_axes))
-    batch = axis_group(mesh, batch_axes)
+    groups = lazy_groups(mesh, tuple(shard_axes), batch_axes)
 
     def f(queries: torch.Tensor, db: torch.Tensor):
+        shards, batch = groups()
         q = block(queries, batch)
         local = block(db, shards)
         _no_tf32()
@@ -217,9 +261,10 @@ def compressed_psum(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
 def make_compressed_grad_allreduce(mesh, dp_axis) -> Callable:
     """tree -> tree: int8-compressed mean all-reduce over the DP axes of a
     dict (or a nest of dicts) of tensors, each leaf in its own dtype."""
-    group = axis_group(mesh, dp_axis)
+    groups = lazy_groups(mesh, dp_axis)
 
     def one(g):
+        group, = groups()
         return (compressed_psum(g, group) / float(group.size)).to(g.dtype)
 
     return lambda grads: tree_map(one, grads)
@@ -230,19 +275,52 @@ def make_compressed_grad_allreduce(mesh, dp_axis) -> Callable:
 # ---------------------------------------------------------------------------
 def make_sharded_lookup(mesh, *, table_axis: str = "model",
                         batch_axes=None) -> Callable:
-    """Returns lookup(table (V, E), ids (B, ...)) -> (B, ..., E) for a
-    table in contiguous row blocks over ``table_axis``: each rank resolves
-    the hits in its rows and the partial results are summed over the axis
-    (``models/embedding_bag.sharded_embedding_lookup``)."""
-    from repro_torch.models.embedding_bag import sharded_embedding_lookup
+    """Returns a lookup for a table in contiguous row blocks over
+    ``table_axis``: ``lookup(table (V, E), ids (B, ...)) -> (B, ..., E)``,
+    and ``lookup.bag(table, ids (B, F), weights (B, F) or None) -> (B, E)``
+    (``embedding_bag_fixed``'s sum; INVALID ids add 0).  Each rank
+    resolves the hits in its rows of its block of the batch, the partial
+    results are summed over ``table_axis`` (``psum_forward``) and the
+    batch blocks gathered (``gather_blocks``).  The table enters through
+    ``replicated`` over the batch and table axes, so its gradient, which
+    each rank computes for its rows and its batch block, is summed into
+    the whole one on every rank; the bag's weights through ``take_block``
+    over the batch and ``replicated`` over the table axis, so each rank
+    gets their whole cotangent (the training loss every rank computes
+    from the gathered batch, as ``distributed/index.py``'s callers do)."""
+    b_axes = () if batch_axes is None else (
+        (batch_axes,) if isinstance(batch_axes, str) else tuple(batch_axes))
+    groups = lazy_groups(mesh, table_axis, batch_axes,
+                         b_axes + (table_axis,))
+    return ShardedLookup(groups)
 
-    tables = axis_group(mesh, table_axis)
-    batch = axis_group(mesh, batch_axes)
 
-    def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        local = block(table, tables)
-        out = sharded_embedding_lookup(local, block(ids, batch),
-                                       tables.index * local.shape[0], tables)
-        return all_gather_cat(out, batch, 0)
+class ShardedLookup:
+    """The function ``make_sharded_lookup`` returns."""
 
-    return lookup
+    def __init__(self, groups: Callable):
+        self.groups = groups
+
+    def _local(self, table: torch.Tensor):
+        tables, batch, both = self.groups()
+        local = block(replicated(table, both), tables)
+        return local, tables.index * local.shape[0], tables, batch
+
+    def __call__(self, table: torch.Tensor, ids: torch.Tensor
+                 ) -> torch.Tensor:
+        from repro_torch.models.embedding_bag import sharded_embedding_lookup
+
+        local, offset, tables, batch = self._local(table)
+        out = sharded_embedding_lookup(local, block(ids, batch), offset,
+                                       tables)
+        return gather_blocks(out, batch)
+
+    def bag(self, table: torch.Tensor, ids: torch.Tensor,
+            weights=None) -> torch.Tensor:
+        from repro_torch.models.embedding_bag import sharded_bag
+
+        local, offset, tables, batch = self._local(table)
+        w = None if weights is None else replicated(
+            take_block(weights, batch), tables)
+        out = sharded_bag(local, block(ids, batch), w, offset, tables)
+        return gather_blocks(out, batch)

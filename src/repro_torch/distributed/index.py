@@ -39,7 +39,7 @@ from repro_torch.core import beam
 from repro_torch.core.build import DEGIndex, DEGParams
 from repro_torch.core.distances import get_metric
 from repro_torch.core.graph import DEGraph, INVALID
-from repro_torch.launch.mesh import axis_group
+from repro_torch.launch.mesh import lazy_groups
 
 from .collectives import (all_gather_cat, all_reduce, block,
                           topk_merge_allgather)
@@ -82,9 +82,7 @@ def make_sharded_search(mesh, *, k: int, eps: float = 0.1,
     """
     from repro_torch.quant.store import VectorStore, as_store
 
-    shards = axis_group(mesh, shard_axis)
-    batch = axis_group(mesh, batch_axes)
-    n_shards = shards.size
+    groups = lazy_groups(mesh, shard_axis, batch_axes)
     quantized = codec != "float32"
     rr = max(rerank_k, k) if quantized else k
     if quantized and rerank_k <= 0:
@@ -105,6 +103,8 @@ def make_sharded_search(mesh, *, k: int, eps: float = 0.1,
                 books, *rest = rest
         n, seed, queries, *rest = rest
         exclude = rest[0] if rest else None
+        shards, batch = groups()
+        n_shards = shards.size
         if adj.shape[0] != n_shards:
             raise ValueError(
                 f"{adj.shape[0]} shards over a {shard_axis!r} axis of "
@@ -119,9 +119,10 @@ def make_sharded_search(mesh, *, k: int, eps: float = 0.1,
                              scale=scales[s] if codec == "sq8" else None,
                              codebooks=None if books is None else books[s])
                  if quantized else as_store(vecs[s]))
+        # the search reads no edge weight: a broadcast zero holds none (a
+        # (Ns, d) float32 tensor took 2 GB a call at 2^24 rows)
         g = DEGraph(adjacency=adj[s],
-                    weights=torch.zeros(adj.shape[1:], dtype=torch.float32,
-                                        device=dev),
+                    weights=torch.zeros((), device=dev).expand(adj.shape[1:]),
                     n=int(n[s]))
         seed_col = seed[s:s + 1].to(dev, torch.int32).reshape(1, 1).expand(
             b, 1)

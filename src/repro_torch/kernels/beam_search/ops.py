@@ -30,6 +30,7 @@ _F = ctypes.c_float
 _ARGS = ([_P, _LL, _I, _P, _LL, _I, _P, _P, _I, _I, _P, _P, _I] + [_P] * 15
          + [_I] * 9 + [_F, _LL, _P])
 _SYMBOL = {torch.float32: "beam_search_f32", torch.float16: "beam_search_f16",
+           torch.bfloat16: "beam_search_bf16",
            torch.int8: "beam_search_sq8", torch.uint8: "beam_search_pq"}
 #: the most shared memory a block may use on the H100 (227 KB)
 MAX_SMEM = 232_448
@@ -68,11 +69,13 @@ def beam_search(adjacency, rows, queries, exclude, ids, dists, checked,
                 impl: str = "kernel"):
     """Run every lane's range search to its end.
 
-    adjacency : (N_adj, d) int32; rows (N, m) float32 or float16 (the
-    exact or the fp16 store), (N, m) int8 codes of the sq8 store with its
-    (m,) float32 ``scale``, or (N, m_sub) uint8 codes of the pq store with
-    its (m_sub, 256, dsub) float32 ``codebooks``, m = m_sub * dsub;
-    queries (B, m) float32; exclude (B, X) int32.
+    adjacency : (N_adj, d) int32; rows (N, m) float32, float16 or
+    bfloat16 (the exact store, over half rows too, or the fp16 store),
+    (N, m) int8 codes of the sq8 store with its (m,) float32 ``scale``,
+    or (N, m_sub) uint8 codes of the pq store with its (m_sub, 256, dsub)
+    float32 ``codebooks``, m = m_sub * dsub;
+    queries (B, m) float32, over bfloat16 rows first rounded to bfloat16
+    as ``gather_dist`` rounds them; exclude (B, X) int32.
     The beam state as ``core/beam.py::init`` returns it: ids (B, L) int32,
     dists (B, L) float32, checked / excluded (B, L) bool, hops / evals
     (B,) int32, visited (B, V) int32 (V a power of two) or None for the
@@ -100,10 +103,11 @@ def beam_search(adjacency, rows, queries, exclude, ids, dists, checked,
     if sq8:
         _check("scale", scale, torch.float32, (m,))
     elif codebooks is None:
-        if rows.dtype not in (torch.float32, torch.float16):
-            raise ValueError(f"beam_search: rows must be float32 or float16 "
-                             f"(int8 codes with a scale, uint8 codes with "
-                             f"codebooks), got {rows.dtype}")
+        if rows.dtype not in (torch.float32, torch.float16,
+                              torch.bfloat16):
+            raise ValueError(f"beam_search: rows must be bfloat16, float32 "
+                             f"or float16 (int8 codes with a scale, uint8 "
+                             f"codes with codebooks), got {rows.dtype}")
     else:
         m_sub = m
         m = m_sub * check_store(rows, codebooks)
@@ -139,6 +143,8 @@ def beam_search(adjacency, rows, queries, exclude, ids, dists, checked,
     state = (ids, dists, checked, excluded, hops, evals, visited)
     if B == 0:
         return state
+    if rows.dtype == torch.bfloat16:
+        queries = queries.to(torch.bfloat16).to(torch.float32)
     if impl == "ref" or ids.device.type == "cpu":
         return beam_search_ref(adjacency, rows, queries, exclude, *state,
                                n_valid=n_valid, k=k, eps1=eps1,

@@ -5,7 +5,8 @@ from an initialised beam to the final one.
 The loop is self-contained: it repeats radius, selection of the E first
 unchecked entries, adjacency gather, dedup (the beam broadcast, or the
 visited set's probes; the first occurrence when E > 1), scoring with
-``gather_dist_ref`` (over the sq8 store's code rows ``gather_dist_q_ref``;
+``gather_dist_ref`` (float32, fp16 or bf16 rows upcast to float32; over
+the sq8 store's code rows ``gather_dist_q_ref``;
 over the pq store's, the table sum of ``pq_adc_ref`` from each lane's
 table, built once a search as the kernel builds it: the values
 ``pq_adc_ref`` gives on every hop), the visited

@@ -2,8 +2,9 @@
 // core/beam.py::beam_search) in one launch.  Each query lane repeats the
 // composed hop (radius, select, adjacency gather, dedup, score, visited
 // insert, merge) until it has no active selection or has looped max_hops
-// times, and returns its final beam state.  The rows are float32 or fp16
-// vectors, the sq8 store's int8 code rows with their (m,) float32 scale,
+// times, and returns its final beam state.  The rows are float32, fp16 or
+// bf16 vectors (a half row upcast to float32 in repro::row_sq_l2), the
+// sq8 store's int8 code rows with their (m,) float32 scale,
 // or the pq store's uint8 code rows scored through the lane's
 // sub-distance table.  The fused preset runs here too: its hop is the
 // composed hop with the visited filter (core/beam.py::expand).
@@ -139,8 +140,8 @@ struct Params {
   float eps1;
 };
 
-// Row: float or __half (vector rows of m), signed char (sq8 code rows of
-// m), or uint8_t (pq code rows of m_sub bytes).
+// Row: float, __half or __nv_bfloat16 (vector rows of m), signed char
+// (sq8 code rows of m), or uint8_t (pq code rows of m_sub bytes).
 template <typename Row>
 __global__ void __launch_bounds__(kThreads) beam_search_kernel(const Params p) {
   constexpr bool kPq = std::is_same_v<Row, uint8_t>;
@@ -466,7 +467,8 @@ int vec_choice(const void* rows, const void* scale, const void* queries,
 
 }  // namespace
 
-// rows: (n_rows, m) float32 or fp16, for beam_search_sq8 (n_rows, m) int8
+// rows: (n_rows, m) float32, fp16 or bf16, for beam_search_sq8 (n_rows, m)
+// int8
 // codes with the (m,) float32 scale (null otherwise), or for
 // beam_search_pq (n_rows, m_sub) uint8 codes with (m_sub, 256, dsub)
 // float32 codebooks, m = m_sub * dsub (codebooks null and m_sub = dsub = 0
@@ -533,5 +535,6 @@ int vec_choice(const void* rows, const void* scale, const void* queries,
 
 BEAM_SEARCH_ENTRY(beam_search_f32, float)
 BEAM_SEARCH_ENTRY(beam_search_f16, __half)
+BEAM_SEARCH_ENTRY(beam_search_bf16, __nv_bfloat16)
 BEAM_SEARCH_ENTRY(beam_search_sq8, signed char)
 BEAM_SEARCH_ENTRY(beam_search_pq, uint8_t)

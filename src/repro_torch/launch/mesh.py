@@ -8,6 +8,10 @@ at the row-major coordinates of ``r`` in the mesh's shape, so on the
 
 Axes are roles, not sizes: everything downstream reads sizes from the mesh
 (``batch_axes`` and ``model_axis`` read only the dim names).
+:func:`abstract_mesh` is the port of ``jax.sharding.AbstractMesh``: dim
+names and sizes without ranks, on which the placement rules and the cell
+builder run for the production shapes; a collective needs a
+``DeviceMesh``.
 
 :func:`axis_group` is the port of a JAX axis name inside ``shard_map``:
 the process group a collective over one axis, or over the product of
@@ -50,6 +54,39 @@ def make_debug_mesh(device_type: str = "cuda", *, multi_pod: bool = False):
     return make_mesh(*DEBUG[multi_pod], device_type)
 
 
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's dim names and sizes, with no process behind it.  ``mesh``
+    is the row-major grid of rank numbers a ``DeviceMesh`` of this shape
+    would hold."""
+
+    shape: tuple
+    mesh_dim_names: tuple
+
+    @property
+    def mesh(self):
+        import torch
+
+        return torch.arange(math.prod(self.shape)).reshape(self.shape)
+
+
+def abstract_mesh(shape, axes) -> AbstractMesh:
+    if len(shape) != len(axes):
+        raise ValueError(f"{len(shape)} sizes for {len(axes)} dim names")
+    return AbstractMesh(tuple(int(s) for s in shape), tuple(axes))
+
+
+def axis_names(mesh) -> tuple:
+    return tuple(mesh.mesh_dim_names)
+
+
+def axis_size(mesh, axes) -> int:
+    """The size of one dim, or the product of a tuple of dims."""
+    names = axis_names(mesh)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return math.prod(int(mesh.mesh.shape[names.index(a)]) for a in axes)
+
+
 def batch_axes(mesh) -> tuple:
     """The data-parallel axes of a mesh (pod axis included when present)."""
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
@@ -83,6 +120,9 @@ def axis_group(mesh, axes) -> AxisGroup:
     collective), and keeps this rank's on the mesh."""
     import torch.distributed as dist
 
+    if isinstance(mesh, AbstractMesh):
+        raise TypeError("an abstract mesh has no ranks to run a collective "
+                        "on: build the step over a DeviceMesh to call it")
     if axes is None:
         axes = ()
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -117,3 +157,17 @@ def axis_group(mesh, axes) -> AxisGroup:
         order=tuple(in_group.index(r) for r in mine),
         backend=str(dist.get_backend(group)))
     return cache[axes]
+
+
+def lazy_groups(mesh, *axes_list):
+    """A function that returns the :class:`AxisGroup` of each entry of
+    ``axes_list`` on ``mesh``, resolved at its first call: a step built
+    over an :class:`AbstractMesh` builds, and raises only when called."""
+    resolved: list = []
+
+    def groups() -> tuple:
+        if not resolved:
+            resolved.extend(axis_group(mesh, a) for a in axes_list)
+        return tuple(resolved)
+
+    return groups

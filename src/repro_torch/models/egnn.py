@@ -299,14 +299,16 @@ def make_sharded_loss(cfg: EGNNConfig, mesh, shard_axes) -> Callable:
     are ``loss_fn``'s, not the world size times them."""
     from repro_torch.distributed.collectives import (all_gather_rows, block,
                                                      psum_forward, replicated)
-    from repro_torch.launch.mesh import axis_group
+    from repro_torch.launch.mesh import lazy_groups
 
-    ag = axis_group(mesh, tuple(shard_axes))
-
-    def halo(t):
-        return all_gather_rows(t, ag)
+    groups = lazy_groups(mesh, tuple(shard_axes))
 
     def loss(params, batch):
+        ag, = groups()
+
+        def halo(t):
+            return all_gather_rows(t, ag)
+
         feats, coords = block(batch["feats"], ag), block(batch["coords"], ag)
         labels = block(batch["labels"], ag)
         src, dst = _edges(block(batch["edges"], ag, 1))

@@ -20,7 +20,7 @@ builds it over a mesh).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,13 +54,15 @@ class BagLookup(torch.autograd.Function):
 
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
                         weights: Optional[torch.Tensor] = None,
-                        combiner: str = "sum") -> torch.Tensor:
+                        combiner: str = "sum",
+                        bag_fn: Optional[Callable] = None) -> torch.Tensor:
     """table (V, E), ids (B, F) int32 -> (B, E) in the table's type.
     INVALID (< 0) ids contribute 0; ids >= V are clipped to V - 1; the sum
-    is taken in float32."""
+    is taken in float32.  ``bag_fn(table, ids, weights)`` takes the sum's
+    place (a row-sharded lookup's ``bag``); the mean divides it alike."""
     if combiner not in ("sum", "mean"):
         raise ValueError(combiner)
-    out = BagLookup.apply(table, ids, weights)
+    out = (bag_fn or BagLookup.apply)(table, ids, weights)
     if combiner == "mean":
         w = (ids >= 0).to(torch.float32)
         if weights is not None:
@@ -101,6 +103,14 @@ def embedding_bag_max(table: torch.Tensor, flat_ids: torch.Tensor,
                                include_self=True)
 
 
+def _local_rows(ids: torch.Tensor, row_offset: int, v_local: int):
+    """Global ids -> (local rows clipped into the block, whether each
+    global id lies in this rank's rows)."""
+    local = ids.to(torch.int64) - row_offset
+    own = (local >= 0) & (local < v_local)
+    return local.clamp(0, v_local - 1), own
+
+
 def sharded_embedding_lookup(local_table: torch.Tensor, ids: torch.Tensor,
                              row_offset: int, group) -> torch.Tensor:
     """Row-sharded lookup on one rank.
@@ -108,15 +118,29 @@ def sharded_embedding_lookup(local_table: torch.Tensor, ids: torch.Tensor,
     local_table (V_local, E): this rank's row range [row_offset,
     row_offset + V_local); ids (B, F) are *global* row indices.  Returns
     the full (B, F, E) gather, summed over ``group`` (an
-    ``launch.mesh.AxisGroup``)."""
-    from repro_torch.distributed.collectives import all_reduce
+    ``launch.mesh.AxisGroup``) with the cotangent passed through to each
+    rank's rows."""
+    from repro_torch.distributed.collectives import psum_forward
 
-    v_local = local_table.shape[0]
-    local = ids.to(torch.int64) - row_offset
-    valid = (local >= 0) & (local < v_local)
-    rows = local_table[local.clamp(0, v_local - 1)]           # (B, F, E)
-    rows = torch.where(valid[..., None], rows, 0.0)
-    return all_reduce(rows, group, torch.distributed.ReduceOp.SUM)
+    local, own = _local_rows(ids, row_offset, local_table.shape[0])
+    # F.embedding, as models/recsys.py::default_lookup gathers: its
+    # backward sums a row's duplicates as the unsharded lookup's does
+    rows = torch.nn.functional.embedding(local, local_table)
+    return psum_forward(torch.where(own[..., None], rows, 0.0), group)
+
+
+def sharded_bag(local_table: torch.Tensor, ids: torch.Tensor,
+                weights: Optional[torch.Tensor], row_offset: int,
+                group) -> torch.Tensor:
+    """Row-sharded ``embedding_bag_fixed`` sum on one rank: the bag over
+    the ids in this rank's rows (every other id INVALID), through the
+    ``bag_lookup`` kernel, summed over ``group`` as
+    :func:`sharded_embedding_lookup` sums."""
+    from repro_torch.distributed.collectives import psum_forward
+
+    local, own = _local_rows(ids, row_offset, local_table.shape[0])
+    local = torch.where(own, local, -1).to(torch.int32)
+    return psum_forward(BagLookup.apply(local_table, local, weights), group)
 
 
 def stack_vocab_offsets(vocab_sizes: Sequence[int]

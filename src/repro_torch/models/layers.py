@@ -239,6 +239,14 @@ def mlp_tower(generator: torch.Generator, sizes: list[int],
                 for i in range(n)}
 
 
+def abs_mlp_tower(sizes: list[int], dtype=torch.float32) -> dict:
+    """:func:`mlp_tower`'s shapes as ``meta`` tensors."""
+    n = len(sizes) - 1
+    return {f"w{i}": abs_p(sizes[i], sizes[i + 1], dtype=dtype)
+            for i in range(n)} | {f"b{i}": abs_p(sizes[i + 1], dtype=dtype)
+                                  for i in range(n)}
+
+
 def apply_mlp_tower(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                     act: Callable = torch.relu,
                     final_act: Optional[Callable] = None) -> torch.Tensor:

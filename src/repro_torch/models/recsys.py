@@ -17,6 +17,13 @@ means go through :func:`embedding_bag_fixed`, whose sum is the
 (:func:`default_lookup`) with torch's embedding backward, as the JAX
 package takes it with ``jnp.take`` outside any Pallas kernel.
 
+``forward``, ``loss_fn`` and ``user_embedding`` take a ``lookup_fn``, as
+the JAX functions do: an object that gathers rows (``lookup_fn(table,
+ids)``) and sums weighted bags (``lookup_fn.bag(table, ids, weights)``)
+of the stacked table, such as the row-sharded lookup of
+``distributed.collectives.make_sharded_lookup``.  None takes
+:func:`default_lookup` and the ``bag_lookup`` bag.
+
 Serving (``forward``, ``user_embedding``, ``serve_retrieval``) runs under
 ``torch.inference_mode()`` on frozen parameters (``model.requires_grad_()``
 unfreezes them for a caller of its own).  Training goes through
@@ -41,8 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.embedding_bag import (embedding_bag_fixed,
                                               stack_vocab_offsets)
-from repro_torch.models.layers import (ParamTree, apply_mlp_tower,
-                                      dense_init, mlp_tower)
+from repro_torch.models.layers import (ParamTree, abs_mlp_tower, abs_p,
+                                      apply_mlp_tower, dense_init, mlp_tower)
 
 INVALID = -1
 
@@ -114,6 +121,30 @@ class RecsysModel(ParamTree):
 # --------------------------------------------------------------------------
 # parameters
 # --------------------------------------------------------------------------
+def abstract_params(cfg: RecsysConfig) -> dict:
+    """The parameter tree's shapes as ``meta`` tensors."""
+    E = cfg.embed_dim
+    p: dict = {"table": abs_p(cfg.total_rows, E)}
+    if cfg.kind == "dlrm":
+        p["bot_mlp"] = abs_mlp_tower([cfg.n_dense, *cfg.bot_mlp])
+        n_int = cfg.n_sparse + 1
+        top_in = E + n_int * (n_int - 1) // 2
+        p["top_mlp"] = abs_mlp_tower([top_in, *cfg.mlp])
+    elif cfg.kind == "dcn-v2":
+        d = cfg.x0_dim
+        p["cross_w"] = abs_p(cfg.n_cross, d, d)
+        p["cross_b"] = abs_p(cfg.n_cross, d)
+        p["top_mlp"] = abs_mlp_tower([d, *cfg.mlp, 1])
+    elif cfg.kind == "deepfm":
+        p["fm_w"] = abs_p(cfg.total_rows)      # first-order weights
+        p["fm_b"] = abs_p()
+        p["top_mlp"] = abs_mlp_tower([cfg.x0_dim, *cfg.mlp, 1])
+    elif cfg.kind == "din":
+        p["attn_mlp"] = abs_mlp_tower([4 * E, *cfg.attn_mlp, 1])
+        p["top_mlp"] = abs_mlp_tower([cfg.x0_dim, *cfg.mlp, 1])
+    return p
+
+
 def init_params(cfg: RecsysConfig, generator: torch.Generator,
                 device="cuda") -> RecsysModel:
     """Random parameters drawn from ``generator`` (on ``device``), in the
@@ -217,14 +248,25 @@ def _params_cfg(model_or_params, cfg: Optional[RecsysConfig]):
     return model_or_params, cfg
 
 
-def _forward(p: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+def _gather(lookup_fn):
+    return default_lookup if lookup_fn is None else lookup_fn
+
+
+def _bag(lookup_fn, table, ids, weights=None, combiner="sum"):
+    return embedding_bag_fixed(
+        table, ids, weights, combiner,
+        bag_fn=None if lookup_fn is None else lookup_fn.bag)
+
+
+def _forward(p: dict, batch: dict, cfg: RecsysConfig,
+             lookup_fn=None) -> torch.Tensor:
     """The forward over a parameter dict, with autograd as the caller has
     it; logits (B,) float32."""
     dt = cfg.dtype
     if cfg.kind == "din":
-        return _din_forward(p, batch, cfg)
+        return _din_forward(p, batch, cfg, lookup_fn)
     gids = global_ids(cfg, batch["sparse"])
-    emb = default_lookup(p["table"], gids).to(dt)             # (B, F, E)
+    emb = _gather(lookup_fn)(p["table"], gids).to(dt)         # (B, F, E)
     if cfg.kind == "dlrm":
         dense = torch.log1p(torch.clamp_min(batch["dense"].to(dt), 0.0))
         bot = apply_mlp_tower(p["bot_mlp"], dense, act=torch.relu,
@@ -254,14 +296,16 @@ def _forward(p: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     raise ValueError(cfg.kind)
 
 
-def _din_forward(p: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+def _din_forward(p: dict, batch: dict, cfg: RecsysConfig,
+                 lookup_fn=None) -> torch.Tensor:
     dt = cfg.dtype
+    gather = _gather(lookup_fn)
     gids = global_ids(cfg, batch["sparse"])
-    emb = default_lookup(p["table"], gids).to(dt)             # (B, F, E)
+    emb = gather(p["table"], gids).to(dt)                     # (B, F, E)
     target = emb[:, cfg.item_field]                           # (B, E)
     hist_gids = history_ids(cfg, batch["hist"])               # (B, S)
     valid = (hist_gids >= 0)[..., None].to(dt)
-    hist = default_lookup(p["table"], hist_gids.clamp_min(0)).to(dt) * valid
+    hist = gather(p["table"], hist_gids.clamp_min(0)).to(dt) * valid
     t = target[:, None, :].expand_as(hist)
     af = torch.cat([hist, t, hist - t, hist * t], dim=-1)
     scores = apply_mlp_tower(p["attn_mlp"], af, act=torch.sigmoid)
@@ -269,26 +313,30 @@ def _din_forward(p: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     w = torch.softmax(scores, dim=1)                          # (B, S, 1)
     # sum_s w[b, s] * table[hist_gids[b, s]], padded slots contributing 0:
     # the bag_lookup kernel, and bag_lookup_bwd for its gradient
-    interest = embedding_bag_fixed(p["table"], hist_gids, w[..., 0]).to(dt)
+    interest = _bag(lookup_fn, p["table"], hist_gids, w[..., 0]).to(dt)
     x = torch.cat([emb.reshape(emb.shape[0], -1), interest], dim=1)
     out = apply_mlp_tower(p["top_mlp"], x, act=torch.relu)
     return out[:, 0].to(torch.float32)
 
 
 @torch.inference_mode()
-def forward(model: RecsysModel, batch: dict) -> torch.Tensor:
-    """Serving: logits (B,) float32, under ``torch.inference_mode()``."""
-    return _forward(model.params(), batch, model.cfg)
+def forward(model_or_params, batch: dict,
+            cfg: Optional[RecsysConfig] = None, *,
+            lookup_fn=None) -> torch.Tensor:
+    """Serving: logits (B,) float32, under ``torch.inference_mode()``, of
+    a ``RecsysModel`` or of a parameter dict with its ``cfg``."""
+    p, cfg = _params_cfg(model_or_params, cfg)
+    return _forward(p, batch, cfg, lookup_fn)
 
 
 def loss_fn(model_or_params, batch: dict,
-            cfg: Optional[RecsysConfig] = None):
+            cfg: Optional[RecsysConfig] = None, *, lookup_fn=None):
     """Mean binary cross-entropy of the logits against ``batch["label"]``,
     with gradients to every parameter that takes one: over a
     ``RecsysModel``, or over a parameter dict with its ``cfg`` (what
     ``train.steps.make_train_step`` hands it)."""
     p, cfg = _params_cfg(model_or_params, cfg)
-    logits = _forward(p, batch, cfg)
+    logits = _forward(p, batch, cfg, lookup_fn)
     y = batch["label"].to(torch.float32)
     loss = torch.mean(torch.clamp_min(logits, 0) - logits * y
                       + torch.log1p(torch.exp(-torch.abs(logits))))
@@ -299,7 +347,9 @@ def loss_fn(model_or_params, batch: dict,
 # retrieval serving
 # --------------------------------------------------------------------------
 @torch.inference_mode()
-def user_embedding(model: RecsysModel, batch: dict) -> torch.Tensor:
+def user_embedding(model_or_params, batch: dict,
+                   cfg: Optional[RecsysConfig] = None, *,
+                   lookup_fn=None) -> torch.Tensor:
     """A query-side vector in item-embedding space: DIN's masked mean over
     its history, otherwise the mean over the sparse fields.
 
@@ -307,13 +357,13 @@ def user_embedding(model: RecsysModel, batch: dict) -> torch.Tensor:
     as :func:`forward` does (the bag would clip it to the last row; the
     JAX package's ``jnp.take`` gives NaN).  DIN's -1 history padding stays
     valid.  The check costs one device-to-host read per call."""
-    cfg = model.cfg
+    p, cfg = _params_cfg(model_or_params, cfg)
     if cfg.kind == "din":
         ids = history_ids(cfg, batch["hist"])
     else:
         ids = global_ids(cfg, batch["sparse"]).to(torch.int32)
-    check_rows(ids, model.table.shape[0])
-    pooled = embedding_bag_fixed(model.table, ids, combiner="mean")
+    check_rows(ids, p["table"].shape[0])
+    pooled = _bag(lookup_fn, p["table"], ids, combiner="mean")
     return pooled.to(torch.float32)
 
 

@@ -310,7 +310,8 @@ BAD = {
     "hops int64": dict(hops=torch.zeros((3,), dtype=torch.int64)),
     "evals shape": dict(evals=torch.zeros((4,), dtype=torch.int32)),
     "rows int8": dict(rows=torch.zeros((10, 16), dtype=torch.int8)),
-    "rows bf16": dict(rows=torch.zeros((10, 16), dtype=torch.bfloat16)),
+    # bfloat16 rows are taken; rows of another width than the queries' not
+    "rows bf16": dict(rows=torch.zeros((10, 15), dtype=torch.bfloat16)),
     "queries width": dict(queries=torch.zeros((3, 15))),
     "queries float64": dict(queries=torch.zeros((3, 16),
                                                 dtype=torch.float64)),

@@ -92,7 +92,11 @@ def test_phase2_rows(rehearsal, recsys):
             "timed_by"}
     assert [r["name"] for r in line] == list(rows)
     for r in line:
-        assert set(r) == keys and r["timed_by"] == "cuda_graph", r["name"]
+        # the whole search's row also carries its further checks (the
+        # bf16 shape of phase 2 here, phase 15b's cells on the card)
+        more = {"checks"} if r["name"] == "beam_search" else set()
+        assert set(r) == keys | more and r["timed_by"] == "cuda_graph", \
+            r["name"]
         assert r["launches"] == 3 and r["route"] == "cuda"
         assert os.path.exists(os.path.join(cs.ROOT, r["source"]))
     # the ground truth's row at B=64: 32-query tiles, 105 splits of 4 tiles
@@ -111,6 +115,8 @@ def test_phase2_rows(rehearsal, recsys):
     assert "B=64 N=53387 m=192 k=10" in rows["l2_topk"]["shape"]
     assert rows["l2_topk"]["bound_by"] == "operations"
     assert rows["l2_topk"]["tl"] is not None
+    bf16 = line[list(rows).index("beam_search")]["checks"]
+    assert len(bf16) == 1 and "serve bf16" in bf16[0]["shape"]
 
 
 @pytest.mark.parametrize("kw, shape", [

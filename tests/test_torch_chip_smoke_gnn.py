@@ -134,7 +134,7 @@ def test_halo_rank_counts_no_kernel_launch(phase14):
 def test_main_runs_phase_14_after_phase_13():
     """main() runs phase 14 in its child right after phase 13's children
     and before phase 2, and the docstring lists 14a-14e and the kernels'
-    line as phase 15."""
+    line as phase 16 (phase 15 is the cell builder's)."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -146,5 +146,5 @@ def test_main_runs_phase_14_after_phase_13():
     for part in ("14. (right after phase 13's children", "14a. minibatch_lg",
                  "14b. full_graph_sm", "14c. one minibatch_lg batch",
                  "14d. the halo loss", "14e. ogb_products",
-                 "15. the kernels' JSON line"):
+                 "16. the kernels' JSON line"):
         assert part in doc, part

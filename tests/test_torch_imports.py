@@ -80,6 +80,31 @@ def test_sharding_module_imports_alone(probe, name):
         f"{full} loaded {probe['loaded'][full]}"
 
 
+_CELL_MODULES = ("distributed.sharding", "launch.cells")
+
+
+@pytest.mark.parametrize("name", _CELL_MODULES)
+def test_cell_module_imports_alone(probe, name):
+    """The placement rules and the cell builder are among the probe's
+    imports and loaded no JAX and nothing of the JAX package."""
+    full = "repro_torch." + name
+    assert full in probe["names"]
+    assert probe["loaded"][full] == [], \
+        f"{full} loaded {probe['loaded'][full]}"
+
+
+def test_cells_test_helper_loads_no_jax():
+    """``tests/_torch_cells.py`` loads JAX only in its subprocess."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, _torch_cells; print(json.dumps(sorted(m for m "
+            "in sys.modules if m == 'jax' or m.startswith(('jax.', "
+            "'jaxlib')) or m == 'repro' or m.startswith('repro.'))))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([_SRC, tests]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120, check=True).stdout
+    assert json.loads(out) == []
+
+
 def test_dist_test_helper_loads_no_jax():
     """The torch side of ``tests/_torch_dist.py`` (its rank functions run
     in every spawned rank) loads no JAX: only its JAX subprocess does."""
