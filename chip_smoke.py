@@ -14,7 +14,8 @@ refine
 the index, delete vertices from it, and serve again; then serve the
 recsys models DIN and DCN-v2 at their published widths, their embedding
 bags through the bag_lookup kernel, and train both at the train_batch
-cell's width, DIN's bag gradient through the bag_lookup_bwd kernel; and,
+cell's width, DIN's history gradient through the bag_bwd_order and
+bag_lookup_bwd kernels; and,
 first of all, serve the LMs gemma3-12b and qwen3-moe-30b-a3b at their
 published widths and hold the five reduced LMs on the card against the
 CPU, then train EGNN on minibatch_lg's Reddit-sized graph and run its
@@ -228,20 +229,30 @@ Phases (any failure raises and exits non-zero):
      torch.Generator seeded 0), the MLPerf split (SGD 0.05 on the tables,
      AdamW 1e-3 on the towers), batches of 65,536 from
      CriteoLikeStream(seed=0), each made once on the host (s a batch);
-     12a. bag_lookup_bwd at DIN's train_batch shape (step 0's Zipf history
-     ids with their -1 tails over DIN's table, weights in [0, 1), a normal
-     dL/dout) against its plain version (grad_w at rtol 1e-5 atol 1e-6;
-     grad_table there plus 1e-6 times each entry's sum of |w| |g|, since
-     the Zipf head sums some 800,000 float32 terms, in another order in
-     each version), a second launch torch.equal to the first; times of the
-     kernel with its sort, of its kernels alone on sorted keys, of the
-     sort, of the plain version and of F.embedding_bag's forward plus
-     backward; the bound by analysis/roofline.py::bag_lookup_bwd_costs;
+     12a. DIN's history gradient at its train_batch shape (step 0's Zipf
+     history ids with their -1 tails over DIN's table, weights in [0, 1),
+     a normal dL/dout g and dL/dhist G): bag_bwd_order (grad_w and the
+     ids' order, a counting sort) then bag_lookup_bwd (the table's
+     gradient, G + w g summed a row) against their plain versions (grad_w
+     at rtol 1e-5 atol 1e-6; grad_table there plus 1e-6 times each
+     entry's sum of |G + w g|, since the Zipf head sums some 845,800
+     float32 terms, in another order in each version; the order
+     torch.equal to a stable torch.sort), a second launch torch.equal to
+     the first, and again at two small shapes off DIN's path (the bag
+     alone at an odd E of two column groups; E=7 with G); times of the
+     whole (with the index preparation), of each kernel alone, of the
+     plain versions, of a stable torch.sort of the keys, of index_select
+     of the sorted G rows and of embedding_dense_backward of the combined
+     rows; each kernel's passes by the profiler; the bounds by
+     analysis/roofline.py (history_grad_costs, bwd_order_costs,
+     table_grad_costs);
      12b. TRAIN_STEPS steps of each model: the loss curve, every loss
      finite, ms a step between CUDA events and samples/s, the host batch
      time beside it, peak bytes, the idle share of one step (on a copy),
-     the model flops over the float32 peak; one bag_lookup and one
-     bag_lookup_bwd launch a DIN step and none a DCN-v2 step; each of the
+     the model flops over the float32 peak; one bag_lookup, one
+     bag_bwd_order and one bag_lookup_bwd launch a DIN step and none a
+     DCN-v2 step, and in the profiled DIN step no embedding backward of
+     the history's shape; each of the
      first TRAIN_PLAIN_STEPS steps again through the plain versions from
      the kernel run's parameters and state before it: losses at rtol
      1e-5, parameters after it at rtol 1e-4 atol 1e-6 (two chains of
@@ -518,6 +529,10 @@ DEG_RUN = (("search_16m", ""), ("explore_16m", ""), ("build_wave_16m", ""),
 DEG_REPS = 3                       # timed calls a cell
 DEG_EPS = 0.1                      # the deg-ann cells' search eps
 CELL_TRAIN_STEPS = 2               # 15c: DIN train_batch steps
+# the bag kernels a DIN train step launches once each, by their counters
+BAG_COUNTERS = (("bag_lookup", "launches"),
+                ("bag_bwd_order", "launches_order"),
+                ("bag_lookup_bwd", "launches_bwd"))
 MEMORY_SLACK = 1 << 30             # the card's bytes after phase 12
 
 KERNELS = {
@@ -529,9 +544,10 @@ KERNELS = {
     "pq_adc": "src/repro/kernels/pq_adc/pq_adc.py:68",
     "l2_topk": "src/repro/kernels/l2_topk/l2_topk.py:93",
     "bag_lookup": "src/repro/kernels/bag_lookup/bag_lookup.py:38",
-    # the gradient of DIN's pooling sum, which JAX takes with its autodiff
-    # and the port with the bag_lookup kernel
-    "bag_lookup_bwd": "src/repro/models/recsys.py:220",
+    # DIN's history gradient, which JAX takes with its autodiff of the
+    # history's one lookup and its pooling sum
+    "bag_bwd_order": "src/repro/models/recsys.py:212-220",
+    "bag_lookup_bwd": "src/repro/models/recsys.py:212-220",
     # the whole search folds beam_merge, gather_dist, gather_dist_q, pq_adc
     # and fused_hop into one launch
     "beam_search": "src/repro/kernels/beam_merge/beam_merge.py:189, "
@@ -1652,6 +1668,7 @@ def launch_counters() -> dict:
             "pq_adc": (adc_ops, "launches"),
             "l2_topk": (l2_ops, "launches"),
             "bag_lookup": (bag_ops, "launches"),
+            "bag_bwd_order": (bag_ops, "launches_order"),
             "bag_lookup_bwd": (bag_ops, "launches_bwd")}
 
 
@@ -1867,7 +1884,8 @@ def plain_kernels():
               (gd, "gather_dist"), (es, "extend_select"),
               (mo, "mrng_occlusion"), (gdq, "gather_dist_q"),
               (adc, "pq_adc"), (l2, "l2_topk"), (bag, "bag_lookup"),
-              (bag, "bag_lookup_bwd"))]
+              (bag, "bag_lookup_bwd"), (bag, "bwd_order"),
+              (bag, "table_grad"))]
     try:
         for m, name, fn in saved:
             setattr(m, name, functools.partial(fn, impl="ref"))
@@ -4352,17 +4370,51 @@ def _close_sums(what: str, got, want, mag=None) -> None:
             f"{float((got - want).abs().max()):.3g}")
 
 
-def check_bag_lookup_bwd(table, ids, weights, g, shape: str) -> dict:
-    """The backward kernel against its plain version (grad_w at BAG_RTOL /
-    BAG_ATOL; grad_table there plus BAG_ATOL times each entry's sum of
-    |w| |g|, ``_close_sums``), a second launch bit-identical to the first, and times: the kernel with its sort (``t``), the kernels
-    alone on sorted keys (``t_kernels``), the sort alone (``t_sort``), the
-    plain version, and F.embedding_bag's forward plus backward as the
-    library call.  The bound counts what
-    ``analysis/roofline.py::bag_lookup_bwd_costs`` counts."""
+def _same_order(got, want) -> None:
+    """The kernel's order against the plain version's stable sort: the
+    same count, and the same keys, positions and weights, bit for bit."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.analysis.roofline import bag_lookup_bwd_costs
+
+    n = int(got.count)
+    if n != int(want.count):
+        raise AssertionError(f"bag_bwd_order: {n} valid entries, the plain "
+                             f"version {int(want.count)}")
+    for name in ("keys", "pos", "w"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(
+                a[:n], b[:n])):
+            raise AssertionError(f"bag_bwd_order: {name} not the plain "
+                                 "version's stable order")
+
+
+def pass_split(fn, what: str, reps: int = 20) -> list:
+    """Log each device kernel of ``reps`` calls of ``fn`` under
+    torch.profiler: launches and ms a launch, most time first."""
+    rows = device_profile(fn, reps)
+    for name, total, n in rows:
+        log(f"  {what} pass {name[:90]}: {n / reps:g} a call, "
+            f"{total / n:.6f} ms a launch, {total / reps:.6f} ms a call")
+    return rows
+
+
+def check_history_grad(table, ids, weights, g, G, shape: str) -> dict:
+    """The history gradient's two kernels at one shape: ``bwd_order``
+    (grad_w and the ids' order) and ``table_grad`` (the table's gradient
+    from G and the bag's g), through ``bag_lookup_bwd`` against the plain
+    version (grad_w at BAG_RTOL / BAG_ATOL; grad_table there plus BAG_ATOL
+    times each entry's sum of |G + w g|, ``_close_sums``), a second launch
+    bit-identical to the first, the order equal to the plain stable sort;
+    times of the whole (with the index preparation), of ``table_grad``
+    alone on the order, of ``bwd_order`` alone, of the plain versions, of
+    ``torch.sort`` of the keys, of ``index_select`` of the valid G rows in
+    the order's sequence (the chunk pass's floor) and of the library call
+    (``embedding_dense_backward`` of the combined rows G + w g at the ids,
+    the invalid ones on a padding row V); each kernel's passes by the
+    profiler.  Returns the two kernels' rows, each with its bound from
+    ``analysis/roofline.py`` (``table_grad_costs``, ``bwd_order_costs``),
+    and the whole's numbers under "whole" (``history_grad_costs``)."""
+    import torch
+    from repro_torch.analysis import roofline
     from repro_torch.kernels.bag_lookup import ops
 
     V, E = table.shape
@@ -4371,63 +4423,142 @@ def check_bag_lookup_bwd(table, ids, weights, g, shape: str) -> dict:
     safe = ids.clamp(0, V - 1)
     w = torch.ones_like(ids, dtype=torch.float32) if weights is None \
         else weights
-    w = torch.where(valid, w, 0.0)
-    # sum |w| |g| an entry of grad_table: a row named 800,000 times (DIN's
+    comb = torch.where(valid[..., None], G + w[..., None] * g[:, None, :],
+                       0.0)
+    # sum |G + w g| an entry of grad_table: a row named 845,800 times (DIN's
     # Zipf head) sums that many float32 terms, in another order in each
     # version (the plain one by atomics), and keeps the rounding of its
     # terms' scale
     mag = torch.zeros((V, E), dtype=torch.float32, device=table.device)
-    mag.index_add_(0, safe.reshape(-1).long(),
-                   (w.abs()[..., None] * g.abs()[:, None, :]).reshape(-1, E))
-    got = ops.bag_lookup_bwd(table, ids, weights, g)
-    want = ops.bag_lookup_bwd(table, ids, weights, g, impl="ref")
+    mag.index_add_(0, safe.reshape(-1).long(), comb.abs().reshape(-1, E))
+    got = ops.bag_lookup_bwd(table, ids, weights, g, G=G)
+    want = ops.bag_lookup_bwd(table, ids, weights, g, G=G, impl="ref")
     _close_sums("grad_w", got[0], want[0])
     _close_sums("grad_table", got[1], want[1], mag)
-    again = ops.bag_lookup_bwd(table, ids, weights, g)
+    again = ops.bag_lookup_bwd(table, ids, weights, g, G=G)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("bag_lookup_bwd: a second launch on the same "
                              "inputs gave other bits")
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    lt = table.detach().clone().requires_grad_()
-    lw = w.detach().clone().requires_grad_()
+    order, grad_w = ops.bwd_order(table, ids, weights, g, need_w=True)
+    _same_order(order, ops.bwd_order(table, ids, weights, impl="ref")[0])
+    if not torch.equal(grad_w, got[0]):
+        raise AssertionError("bwd_order's grad_w is not bag_lookup_bwd's")
+    err_w = float((grad_w - want[0]).abs().max())
+    padded = torch.where(valid, safe, V).long()
 
     def library():
-        out = F.embedding_bag(safe, lt, mode="sum", per_sample_weights=lw)
-        return torch.autograd.grad(out, (lt, lw), g)
+        return torch.ops.aten.embedding_dense_backward(comb, padded, V + 1,
+                                                       V, False)
 
-    lib_t, lib_w = library()
-    _close_sums("F.embedding_bag grad_table", lib_t, want[1], mag)
-    _close_sums("F.embedding_bag grad_w", torch.where(valid, lib_w, 0.0),
-                want[0])
-    order = ops.bwd_order(ids, V)
-    t = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g),
-                  "bag_bwd_")
-    t_kernels = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g,
-                                                     order=order))
-    t_sort = time_call(lambda: ops.bwd_order(ids, V))
-    tp = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g,
+    lib_t = library()[:V]
+    _close_sums("embedding_dense_backward grad_table", lib_t, want[1], mag)
+    whole = lambda: ops.bag_lookup_bwd(table, ids, weights, g, G=G)  # noqa
+    t = time_call(whole)
+    tp = time_call(lambda: ops.bag_lookup_bwd(table, ids, weights, g, G=G,
                                               impl="ref"))
+    t_grad = time_call(lambda: ops.table_grad(order, table, ids, weights, g,
+                                              G))
+    tp_grad = time_call(lambda: ops.table_grad(None, table, ids, weights, g,
+                                               G, impl="ref"))
+    t_order = time_call(lambda: ops.bwd_order(table, ids, weights, g,
+                                              need_w=True))
+    tp_order = time_call(lambda: ops.bwd_order(table, ids, weights, g,
+                                               need_w=True, impl="ref"))
+    key = torch.where(valid, safe, V).reshape(-1)
+    t_sort = time_call(lambda: torch.sort(key, stable=True))
+    # the chunk pass's floor: torch's gather of the valid entries' G rows
+    # in the order's (row-sorted, so random) sequence
+    sorted_pos = order.pos[:int(order.count)].long()
+    t_gather = time_call(lambda: G.reshape(-1, E).index_select(0,
+                                                               sorted_pos))
     tl = time_call(library)
+    split = pass_split(whole, "history gradient")
     n_valid = int(valid.sum())
     rows = torch.unique(safe[valid]).numel()
-    c = bag_lookup_bwd_costs(B, nf, E, V, n_valid, rows,
-                             weighted=weights is not None)
-    bms, by = bound_ms(c["hbm_bytes"], c["flops"])
     head = int(torch.bincount(safe[valid].long()).max()) if n_valid else 0
-    return dict(name="bag_lookup_bwd", max_abs_err=err, t=t, tp=tp, tl=tl,
-                t_kernels=t_kernels, t_sort=t_sort, bound_ms=bms,
-                bound_by=by,
-                shape=f"{shape}: B={B} F={nf} E={E} V={V}, {n_valid} valid "
-                      f"ids, {rows} rows, {head} on the most named row",
-                tol=f"rtol {BAG_RTOL:g} atol {BAG_ATOL:g}, grad_table plus "
-                    f"{BAG_ATOL:g} x sum |w| |g|; a second launch "
-                    "torch.equal")
+    weighted = weights is not None
+    bounds = {k: bound_ms(c["hbm_bytes"], c["flops"]) for k, c in (
+        ("whole", roofline.history_grad_costs(B, nf, E, V, n_valid, rows,
+                                              weighted)),
+        ("grad", roofline.table_grad_costs(B, nf, E, V, n_valid, weighted)),
+        ("order", roofline.bwd_order_costs(B, nf, E, n_valid, rows,
+                                           weighted)))}
+    shape = (f"{shape}: B={B} F={nf} E={E} V={V}, {n_valid} valid ids, "
+             f"{rows} rows, {head} on the most named row")
+    tol = (f"rtol {BAG_RTOL:g} atol {BAG_ATOL:g}, grad_table plus "
+           f"{BAG_ATOL:g} x sum |G + w g|; a second launch torch.equal; "
+           "the order torch.equal to a stable torch.sort")
+    grad_row = dict(name="bag_lookup_bwd", max_abs_err=err, t=t_grad,
+                    tp=tp_grad, tl=tl, bound_ms=bounds["grad"][0],
+                    bound_by=bounds["grad"][1], shape=shape, tol=tol,
+                    t_gather=t_gather)
+    order_row = dict(name="bag_bwd_order", max_abs_err=err_w, t=t_order,
+                     tp=tp_order, tl=None, bound_ms=bounds["order"][0],
+                     bound_by=bounds["order"][1], shape=shape, tol=tol,
+                     t_sort=t_sort)
+    return dict(grad=grad_row, order=order_row,
+                whole=dict(t=t, tp=tp, tl=tl, bound_ms=bounds["whole"][0],
+                           bound_by=bounds["whole"][1], max_abs_err=err,
+                           split=split))
+
+
+# the gradient's paths DIN's shape does not take, as (E, weighted, G):
+# the bag alone (embedding_bag_fixed's backward) at an odd E over two
+# column groups, and a narrow weighted history
+BAG_GRAD_SHAPES = ((37, False, False), (7, True, True))
+
+
+def check_bag_grad_shapes(device, seed=1) -> None:
+    """``bag_lookup_bwd`` at BAG_GRAD_SHAPES (B=512, F=20, V=1,000; Zipf
+    ids, 30% -1 and some past the table) against its plain version at
+    ``check_history_grad``'s tolerances, a second launch torch.equal;
+    untimed."""
+    import torch
+    from repro_torch.kernels.bag_lookup import ops
+
+    rng = np.random.default_rng(seed)
+    B, nf, V = 512, 20, 1000
+
+    def on(a):
+        return torch.tensor(a, device=device)
+
+    for E, weighted, with_G in BAG_GRAD_SHAPES:
+        ids = ((rng.zipf(1.3, size=(B, nf)) - 1) % (V + 5)).astype(np.int32)
+        ids[rng.random((B, nf)) < 0.3] = -1
+        table = on(rng.normal(size=(V, E)).astype(np.float32))
+        w = on(rng.random((B, nf), dtype=np.float32)) if weighted else None
+        g = on(rng.normal(size=(B, E)).astype(np.float32))
+        G = on(rng.normal(size=(B, nf, E)).astype(np.float32)) \
+            if with_G else None
+        ids = on(ids)
+        valid = ids >= 0
+        terms = (torch.ones((B, nf), device=device) if w is None else w
+                 ).abs()[..., None] * g.abs()[:, None, :]
+        if G is not None:
+            terms = terms + G.abs()
+        mag = torch.zeros((V, E), device=device).index_add_(
+            0, ids.clamp(0, V - 1)[valid].long(), terms[valid])
+        got = ops.bag_lookup_bwd(table, ids, w, g, G=G)
+        want = ops.bag_lookup_bwd(table, ids, w, g, G=G, impl="ref")
+        what = f"bag_lookup_bwd E={E} weighted={weighted} G={with_G}"
+        _close_sums(f"{what} grad_w", got[0], want[0])
+        _close_sums(f"{what} grad_table", got[1], want[1], mag)
+        again = ops.bag_lookup_bwd(table, ids, w, g, G=G)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: a second launch gave other bits")
+    log(f"phase12a bag_bwd_order and bag_lookup_bwd at (E, weighted, G) "
+        f"{BAG_GRAD_SHAPES}, B={B} F={nf} V={V}: ok (the tolerances above; "
+        "a second launch torch.equal)")
 
 
 def bag_bwd_check(tr: dict, device, seed=0) -> dict:
-    """bag_lookup_bwd at the shape DIN's train step gives it: the
-    train_batch cell's history ids of step 0 (Zipf-skewed, -1 tails) over
-    DIN's table, weights in [0, 1) and a normal dL/dout."""
+    """The history gradient at the shape DIN's train step gives it
+    (``check_history_grad``): the train_batch cell's history ids of step
+    0 (Zipf-skewed, -1 tails) over DIN's table, weights in [0, 1), a
+    normal dL/dout and a normal dL/dhist; then the paths DIN's shape does
+    not take (``check_bag_grad_shapes``).  Logs the two kernels and the
+    whole; returns ``check_history_grad``'s rows."""
     import torch
     from repro_torch.models import recsys as R
 
@@ -4435,18 +4566,50 @@ def bag_bwd_check(tr: dict, device, seed=0) -> dict:
     ids = R.history_ids(din["cfg"], din["batch_fn"](0)["hist"])
     rng = np.random.default_rng(seed)
     B, nf = ids.shape
+    E = din["cfg"].embed_dim
     weights = torch.tensor(rng.random((B, nf), dtype=np.float32),
                            device=device)
-    g = torch.tensor(rng.normal(size=(B, din["cfg"].embed_dim))
-                     .astype(np.float32), device=device)
-    r = check_bag_lookup_bwd(din["params"]["table"].detach(), ids, weights,
-                             g, "DIN interest train_batch")
-    log(f"phase12a bag_lookup_bwd [{r['shape']}] ok ({r['tol']}): "
-        + timings(r, "F.embedding_bag fwd+bwd")
-        + f"; without the sort {r['t_kernels']['device_ms']:.6f} ms, the "
-        f"sort alone {r['t_sort']['device_ms']:.6f} ms "
-        f"({r['t_kernels']['timed_by']})")
+    g = torch.tensor(rng.normal(size=(B, E)).astype(np.float32),
+                     device=device)
+    G = torch.tensor(rng.normal(size=(B, nf, E)).astype(np.float32),
+                     device=device)
+    r = check_history_grad(din["params"]["table"].detach(), ids, weights,
+                           g, G, "DIN history train_batch")
+    grad, order, whole = r["grad"], r["order"], r["whole"]
+    log(f"phase12a history gradient [{grad['shape']}] ok ({grad['tol']})")
+    log("phase12a bag_lookup_bwd (the table's gradient, on the order): "
+        + timings(grad, "embedding_dense_backward of the combined rows")
+        + f"; index_select of the sorted G rows alone "
+        f"{grad['t_gather']['device_ms']:.6f} ms")
+    log("phase12a bag_bwd_order (grad_w and the order): "
+        + timings(order, "none")
+        + f"; a stable torch.sort of the keys "
+        f"{order['t_sort']['device_ms']:.6f} ms")
+    log(f"phase12a the whole (with the index preparation): "
+        + timings(whole, "embedding_dense_backward of the combined rows"))
+    check_bag_grad_shapes(device)
     return r
+
+
+def history_grad_split(device="cuda") -> None:
+    """Phase 12a alone: DIN's trainer at the train_batch cell (its first
+    batch) and ``bag_bwd_check``.
+    ``python3 -c "import chip_smoke as cs; cs.history_grad_split()"``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import train_batch_trainer
+
+    _build.build_all(["bag_lookup", "bag_bwd_order", "bag_lookup_bwd"])
+    for name in ("bag_bwd_order", "bag_lookup_bwd"):
+        for line in _build.build_log(name).splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60).stdout.strip())
+    _, params, _, batch_fn = train_batch_trainer("din", device, seed=0)
+    bag_bwd_check({"din": dict(cfg=get_arch("din").model, params=params,
+                               batch_fn=batch_fn)}, device)
 
 
 def _leaf_diffs(got, want):
@@ -4521,6 +4684,28 @@ def chain_readings(name: str, r: dict, kept, steps: int) -> dict:
             (("plain_plain", plain_plain), ("plain_kernel", plain_kernel))}
 
 
+def no_history_embedding_backward(fn, hist_shape: tuple) -> None:
+    """Profile one call of ``fn`` (a DIN train step) with the operators'
+    input shapes: no embedding backward may take a cotangent of the
+    history's shape (B, S, E), whose gradient the bag_lookup_bwd kernel
+    takes.  Logs the embedding backwards it saw (the sparse fields')."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        sync()
+    seen = [(e.name, e.input_shapes[0] if e.input_shapes else None)
+            for e in prof.events() if "embedding" in e.name
+            and "backward" in e.name]
+    if any(shape == list(hist_shape) for _, shape in seen):
+        raise AssertionError(f"an embedding backward over the history "
+                             f"{hist_shape}: {seen}")
+    log(f"  the profiled DIN step's embedding backwards: "
+        f"{sorted(set((n, str(sh)) for n, sh in seen))}; none of the "
+        f"history's shape {list(hist_shape)}")
+
+
 def _plain_step(what: str, step, before, batch, loss: float, after) -> None:
     """One train step through the plain versions from ``before`` (the
     kernel run's parameters and state ahead of its step on ``batch``): the
@@ -4543,8 +4728,10 @@ def train_phase(tr: dict, device, count=None, *, steps=TRAIN_STEPS,
     weights (ms a step between CUDA events, samples/s, the host's batch
     time beside, peak bytes of one step past the comparisons, the idle
     share of one step on a copy, the model flops over the card's float32
-    peak), one bag_lookup and one bag_lookup_bwd launch a DIN step and
-    none a DCN-v2 step, every loss finite.  Each of the first
+    peak), one bag_lookup, one bag_bwd_order and one bag_lookup_bwd
+    launch a DIN step and none a DCN-v2 step, every loss finite, and no
+    embedding backward of the history's shape in the profiled DIN step
+    (``no_history_embedding_backward``).  Each of the first
     ``plain_steps`` steps runs again through the plain versions from the
     kernel run's parameters and state before it (``_plain_step``): two
     chains of steps may part, and ``chain_readings`` measures how far
@@ -4578,6 +4765,8 @@ def train_phase(tr: dict, device, count=None, *, steps=TRAIN_STEPS,
             if s == peak_step:
                 peak = peak_memory()
             expect_launches("bag_lookup", bag_ops.launches, want,
+                            f"{name} train step")
+            expect_launches("bag_bwd_order", bag_ops.launches_order, want,
                             f"{name} train step")
             expect_launches("bag_lookup_bwd", bag_ops.launches_bwd, want,
                             f"{name} train step")
@@ -4614,6 +4803,10 @@ def train_phase(tr: dict, device, count=None, *, steps=TRAIN_STEPS,
         p2, s2 = _clone_tree(params), _clone_tree(state)
         idle_share(lambda: step(p2, s2, batch_fn(0)), med,
                    f"one {name} train step")
+        if name == "din":
+            no_history_embedding_backward(
+                lambda: step(p2, s2, batch_fn(0)),
+                (B, cfg.seq_len, cfg.embed_dim))
         del p2, s2
         out[name] = dict(params=params, state=state, losses=losses, ms=ms,
                          step_ms=med, samples_s=B / med * 1e3, peak=peak,
@@ -4658,10 +4851,9 @@ def loop_phase(tr: dict, trained: dict, tmp, count=None, *,
     else:
         raise AssertionError("train_loop ran past its injected failure")
     failed_s = time.perf_counter() - t0
-    for kernel in ("bag_lookup", "bag_lookup_bwd"):
-        expect_launches(kernel, getattr(bag_ops, "launches" if kernel ==
-                                        "bag_lookup" else "launches_bwd"),
-                        fail_at + 1, "din loop steps before the failure")
+    for kernel, attr in BAG_COUNTERS:
+        expect_launches(kernel, getattr(bag_ops, attr), fail_at + 1,
+                        "din loop steps before the failure")
     latest = ckpt.latest_step(d)
     if latest != fail_at // ckpt_every * ckpt_every:
         raise AssertionError(f"latest checkpoint {latest}")
@@ -4670,10 +4862,9 @@ def loop_phase(tr: dict, trained: dict, tmp, count=None, *,
     (p, s), hist = count(train_loop, r["step"], p, s, r["batch_fn"], cfg,
                          log=log)
     resumed_s = time.perf_counter() - t0
-    for kernel in ("bag_lookup", "bag_lookup_bwd"):
-        expect_launches(kernel, getattr(bag_ops, "launches" if kernel ==
-                                        "bag_lookup" else "launches_bwd"),
-                        steps - latest - 1, "din loop steps after the resume")
+    for kernel, attr in BAG_COUNTERS:
+        expect_launches(kernel, getattr(bag_ops, attr), steps - latest - 1,
+                        "din loop steps after the resume")
     if [h["step"] for h in hist] != list(range(latest + 1, steps)):
         raise AssertionError(f"resumed steps {[h['step'] for h in hist]}")
     ref = trained["din"]
@@ -4793,7 +4984,7 @@ def memory_probe(device="cuda", with_phase2: bool = True) -> None:
 def training_phase(device, count=None, *, reduced=False, batch=None,
                    **launcher) -> dict:
     """Phase 12 (12a-12d) in a temporary directory (removed after).
-    Returns the bag_lookup_bwd row of 12a and each piece's numbers."""
+    Returns 12a's rows (``bag_bwd_check``) and each piece's numbers."""
     import tempfile
 
     tr = train_setup(device, reduced=reduced, batch=batch)
@@ -6381,8 +6572,8 @@ def cells_run_phase(mesh, device, count, *, reduced=False,
     ``loss_fn``, from the same weights, state and batches), and EGNN
     full_graph_sm (plain and halo: ``make_train_step`` over ``loss_fn``)
     and molecule.  ``reduced`` takes the configs' ``reduced()`` widths and
-    batches of 256 (a rehearsal on the CPU).  The cells' bag_lookup and
-    bag_lookup_bwd launches go through ``count``."""
+    batches of 256 (a rehearsal on the CPU).  The cells' bag_lookup,
+    bag_bwd_order and bag_lookup_bwd launches go through ``count``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.recsys import CriteoLikeStream
@@ -6559,7 +6750,11 @@ def main(argv=None) -> int:
     del rec
     torch.cuda.empty_cache()
     stamp("phase 8")
-    checks["bag_lookup_bwd"] = training_phase(device, count)["bwd"]
+    bwd = training_phase(device, count)["bwd"]
+    checks["bag_bwd_order"] = bwd["order"]
+    checks["bag_lookup_bwd"] = dict(bwd["grad"], more=[dict(
+        bwd["whole"], shape="the whole history gradient, bag_bwd_order "
+        "then bag_lookup_bwd (with the index preparation)")])
     torch.cuda.empty_cache()
     after12 = card_memory("after phase 12")
     left = memory_left(before8, after12)

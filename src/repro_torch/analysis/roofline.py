@@ -299,14 +299,42 @@ def model_flops_for(meta: dict, kind: str, cell_dims: dict,
     return 0.0
 
 
-def bag_lookup_bwd_costs(B: int, F: int, E: int, V: int, n_valid: int,
-                         n_rows: int, weighted: bool = True) -> dict:
-    """The least bytes and flops of ``bag_lookup``'s backward: ids (B, F)
-    int32 and, where given, the weights (B, F) float32 read; dL/dout (B, E)
-    read; each of the ``n_rows`` distinct table rows that a valid id names
+def history_grad_costs(B: int, F: int, E: int, V: int, n_valid: int,
+                       n_rows: int, weighted: bool = True) -> dict:
+    """The least bytes and flops of DIN's whole history gradient, the
+    transpose of one lookup ``hist = table[ids]`` (B, F, E) pooled by
+    ``sum_f w * hist``: ids (B, F) int32 read; the ``n_valid`` valid
+    entries' weights and their rows of the cotangent G (B, F, E) float32
+    read (an invalid slot's G and weight enter no gradient); dL/dout g
+    (B, E) read; each of the ``n_rows`` distinct rows a valid id names
     read once (for ``grad_w``); ``grad_w`` (B, F) and the dense
-    ``grad_table`` (V, E) float32 written once.  Per valid id, one E-long
-    dot product (``grad_w``) and one E-long scaled add (``grad_table``)."""
-    n_bytes = (B * F * 4 * (2 if weighted else 1) + B * E * 4
-               + n_rows * E * 4 + B * F * 4 + V * E * 4)
-    return {"hbm_bytes": float(n_bytes), "flops": 4.0 * E * n_valid}
+    ``grad_table`` (V, E) float32 written once.  Per valid id, an E-long
+    dot product (``grad_w``), an E-long scaled add (``w * g``) and E adds
+    (G and the row's sum)."""
+    n_bytes = (B * F * 4 + n_valid * 4 * weighted + n_valid * E * 4
+               + B * E * 4 + n_rows * E * 4 + B * F * 4 + V * E * 4)
+    return {"hbm_bytes": float(n_bytes), "flops": 5.0 * E * n_valid}
+
+
+def bwd_order_costs(B: int, F: int, E: int, n_valid: int, n_rows: int,
+                    weighted: bool = True) -> dict:
+    """``bag_bwd_order``'s least bytes and flops: ids (B, F) int32 and the
+    valid entries' weights read, their keys, positions (int32) and weights
+    written once in row order; for ``grad_w`` g (B, E) and the ``n_rows``
+    distinct rows read and ``grad_w`` (B, F) written.  Per valid id, an
+    E-long dot product."""
+    n_bytes = (B * F * 4 + n_valid * 4 * weighted
+               + n_valid * 4 * (2 + weighted) + B * E * 4 + n_rows * E * 4
+               + B * F * 4)
+    return {"hbm_bytes": float(n_bytes), "flops": 2.0 * E * n_valid}
+
+
+def table_grad_costs(B: int, F: int, E: int, V: int, n_valid: int,
+                     weighted: bool = True) -> dict:
+    """``bag_lookup_bwd``'s least bytes and flops from the sorted order:
+    the valid entries' keys, positions and weights read, their rows of G
+    (B, F, E) and g (B, E) read, the dense ``grad_table`` (V, E) float32
+    written once.  Per valid id, an E-long scaled add and E adds."""
+    n_bytes = (n_valid * 4 * (2 + weighted) + n_valid * E * 4 + B * E * 4
+               + V * E * 4)
+    return {"hbm_bytes": float(n_bytes), "flops": 3.0 * E * n_valid}

@@ -277,8 +277,10 @@ def make_sharded_lookup(mesh, *, table_axis: str = "model",
                         batch_axes=None) -> Callable:
     """Returns a lookup for a table in contiguous row blocks over
     ``table_axis``: ``lookup(table (V, E), ids (B, ...)) -> (B, ..., E)``,
-    and ``lookup.bag(table, ids (B, F), weights (B, F) or None) -> (B, E)``
-    (``embedding_bag_fixed``'s sum; INVALID ids add 0).  Each rank
+    ``lookup.bag(table, ids (B, F), weights (B, F) or None) -> (B, E)``
+    (``embedding_bag_fixed``'s sum; INVALID ids add 0), and
+    ``lookup.history(table, ids (B, S))`` (DIN's history rows and their
+    bag, as ``models.embedding_bag.history_lookup``).  Each rank
     resolves the hits in its rows of its block of the batch, the partial
     results are summed over ``table_axis`` (``psum_forward``) and the
     batch blocks gathered (``gather_blocks``).  The table enters through
@@ -324,3 +326,19 @@ class ShardedLookup:
             take_block(weights, batch), tables)
         out = sharded_bag(local, block(ids, batch), w, offset, tables)
         return gather_blocks(out, batch)
+
+    def history(self, table: torch.Tensor, ids: torch.Tensor):
+        """``models.embedding_bag.history_lookup`` over the sharded table:
+        ``(rows (B, S, E), bag)``, each rank's rows and bag over its block
+        of the batch (``sharded_history``), gathered as ``__call__`` and
+        ``bag`` gather, the bag's weights taken as ``bag`` takes them."""
+        from repro_torch.models.embedding_bag import sharded_history
+
+        local, offset, tables, batch = self._local(table)
+        rows, bag = sharded_history(local, block(ids, batch), offset, tables)
+
+        def whole_bag(weights):
+            w = replicated(take_block(weights, batch), tables)
+            return gather_blocks(bag(w), batch)
+
+        return gather_blocks(rows, batch), whole_bag

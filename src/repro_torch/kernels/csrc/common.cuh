@@ -241,6 +241,28 @@ __device__ __forceinline__ float pq_row_sum(const float* lut,
   return warp_sum(s);
 }
 
+// An asynchronous copy of kBytes (4, 8 or 16) from device to shared memory
+// (cp.async, cached at every level), its group commit, and the wait until
+// at most N of this thread's groups are in flight.  After the wait, a
+// __syncwarp or __syncthreads makes the copies visible to the other lanes.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "cp.async size");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The total order of a stable ascending sort of keys a at rank ra: by key,
 // then by rank, with NaN after every number.
 __device__ __forceinline__ bool precedes(float a, int ra, float b, int rb) {

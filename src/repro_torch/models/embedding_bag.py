@@ -2,10 +2,17 @@
 ``src/repro/models/embedding_bag.py``.
 
 * :func:`embedding_bag_fixed` — fixed fields (B, F): a weighted gather-sum,
-  the DLRM/DCN layout and DIN's pooling over its history.  The sum is the
+  the DLRM/DCN layout and DIN's pooled means.  The sum is the
   ``bag_lookup`` kernel (``kernels/bag_lookup``) behind the autograd
-  Function :class:`BagLookup`, whose backward is the ``bag_lookup_bwd``
-  kernel; the mean divides outside it, under torch's autograd.
+  Function :class:`BagLookup`, whose backward is the ``bag_bwd_order`` and
+  ``bag_lookup_bwd`` kernels; the mean divides outside it, under torch's
+  autograd.
+* :func:`history_lookup` — DIN's history: its rows (padded slots 0) and
+  the weighted bag over the same ids, two autograd nodes
+  (:class:`HistoryRows`, :class:`HistoryBag`) that share one index
+  preparation a step and take the table's whole gradient from both in one
+  ``bag_lookup_bwd`` launch, as JAX's autodiff transposes its one lookup
+  (``src/repro/models/recsys.py:212-220``).
 * :func:`embedding_bag_ragged` / :func:`embedding_bag_max` — ragged bags
   flattened to (N,) with ``segment_ids``: a gather, then ``index_add_`` /
   ``scatter_reduce`` (the JAX package's ``take`` + ``segment_sum`` /
@@ -50,6 +57,97 @@ class BagLookup(torch.autograd.Function):
         grad_w, grad_table = bag_ops.bag_lookup_bwd(
             table, ids, weights, g, need_w=need_w, need_table=need_table)
         return grad_table, None, grad_w
+
+
+class HistoryLink:
+    """What the two nodes of one history lookup share: the bag's backward,
+    which autograd runs first, leaves the ids' order (``bag_ops.bwd_order``,
+    with the bag's weights) here for the gather's, which takes them out.
+    It holds the weights detached: the weights' autograd history reaches
+    the gather's node, which holds the link, and a cycle through autograd
+    nodes is never collected (it kept a DIN step's graph alive)."""
+
+    def __init__(self):
+        self.order = None
+        self.weights = None
+
+
+class HistoryRows(torch.autograd.Function):
+    """``(rows, token)``: the rows ``table[clip(ids, 0, V-1)]`` (B, F, E)
+    with 0 at an invalid (< 0) id, and a (B, E) float32 zero ``token``
+    that the history's :class:`HistoryBag` takes, so that the bag's
+    backward runs before this node's and hands it the bag's cotangent
+    ``g`` as the token's.  The backward is the table's whole gradient,
+    one ``bag_ops.table_grad``: ``G[b, f] + w[b, f] * g[b]`` summed into
+    each valid entry's row from the order the bag left in ``link``.  The
+    forward gathers from the table with one zero row appended, so no
+    padded slot is clamped to row 0."""
+
+    @staticmethod
+    def forward(ctx, table, ids, link):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(table, ids)
+        ctx.link = link
+        V, E = table.shape
+        idx = torch.where(ids >= 0, ids.clamp(max=V - 1), V).to(torch.int64)
+        rows = torch.nn.functional.embedding(
+            idx, torch.cat([table, table.new_zeros((1, E))]))
+        token = torch.zeros((ids.shape[0], E), dtype=torch.float32,
+                            device=table.device)
+        return rows, token
+
+    @staticmethod
+    def backward(ctx, G, g):
+        table, ids = ctx.saved_tensors
+        link = ctx.link
+        order, weights = link.order, link.weights
+        link.order = link.weights = None
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        if g is None:
+            weights = None
+        if order is None:                      # no bag, or its g is unused
+            order, _ = bag_ops.bwd_order(table, ids, weights)
+        grad = bag_ops.table_grad(order, table, ids, weights, g, G)
+        return grad.to(table.dtype), None, None
+
+
+class HistoryBag(torch.autograd.Function):
+    """``bag_ops.bag_lookup(table, ids, weights)`` over the ids of a
+    :class:`HistoryRows` node whose ``token`` and ``link`` it takes.  Its
+    backward returns ``grad_w`` (``bag_ops.bwd_order``, which also sorts
+    the ids with the weights, into ``link``) and passes ``g`` to the
+    token; the table's share of its gradient is the gather node's to
+    add."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, token, link):
+        ctx.save_for_backward(table, ids, weights)
+        ctx.link = link
+        return bag_ops.bag_lookup(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        need_w = weights is not None and ctx.needs_input_grad[2]
+        link = ctx.link
+        link.order, grad_w = bag_ops.bwd_order(table, ids, weights, g,
+                                               need_w=need_w)
+        link.weights = None if weights is None else weights.detach()
+        return None, None, grad_w, g, None
+
+
+def history_lookup(table: torch.Tensor, ids: torch.Tensor):
+    """DIN's history over ``table`` (V, E) at ``ids`` (B, S) int32, -1
+    padded: ``(rows, bag)``, the rows (B, S, E) in the table's type with 0
+    at a padded slot, and ``bag(weights (B, S)) -> (B, E)`` float32, the
+    weighted sum of the same rows, taken once.  On a card the table's
+    gradient from both is one ``bag_lookup_bwd`` launch after one
+    ``bag_bwd_order`` launch."""
+    link = HistoryLink()
+    rows, token = HistoryRows.apply(table, ids, link)
+    return rows, lambda weights: HistoryBag.apply(table, ids, weights,
+                                                  token, link)
 
 
 def embedding_bag_fixed(table: torch.Tensor, ids: torch.Tensor,
@@ -141,6 +239,22 @@ def sharded_bag(local_table: torch.Tensor, ids: torch.Tensor,
     local, own = _local_rows(ids, row_offset, local_table.shape[0])
     local = torch.where(own, local, -1).to(torch.int32)
     return psum_forward(BagLookup.apply(local_table, local, weights), group)
+
+
+def sharded_history(local_table: torch.Tensor, ids: torch.Tensor,
+                    row_offset: int, group):
+    """Row-sharded :func:`history_lookup` on one rank: the history's rows
+    and bag over the ids in this rank's rows (every other id INVALID), each
+    summed over ``group`` as :func:`sharded_embedding_lookup` sums; the
+    rank's table gradient is its rows' share, one ``bag_lookup_bwd``
+    launch."""
+    from repro_torch.distributed.collectives import psum_forward
+
+    local, own = _local_rows(ids, row_offset, local_table.shape[0])
+    local = torch.where(own, local, -1).to(torch.int32)
+    rows, bag = history_lookup(local_table, local)
+    return (psum_forward(rows, group),
+            lambda weights: psum_forward(bag(weights), group))
 
 
 def stack_vocab_offsets(vocab_sizes: Sequence[int]

@@ -10,19 +10,22 @@ parameter dict's leaves (``table``, ``top_mlp.w0``, ``cross_w``, ...);
 ``RecsysModel.params()`` gives them as the JAX package's nested dict (the
 same tensors), which is what the optimizers and the checkpoints of
 ``repro_torch.train`` walk.  The forward follows the JAX forward op for op,
-except that DIN's attention-pooled interest and ``user_embedding``'s pooled
-means go through :func:`embedding_bag_fixed`, whose sum is the
-``bag_lookup`` kernel on a card and whose gradient is the
-``bag_lookup_bwd`` kernel.  Every other lookup is a plain gather
+except that ``user_embedding``'s pooled means go through
+:func:`embedding_bag_fixed`, whose sum is the ``bag_lookup`` kernel on a
+card, and DIN's history through ``embedding_bag.history_lookup``: its rows
+(padded slots 0) and its attention-pooled interest, the ``bag_lookup``
+kernel, whose table gradient from both is one ``bag_lookup_bwd`` launch
+after one ``bag_bwd_order`` launch.  Every other lookup is a plain gather
 (:func:`default_lookup`) with torch's embedding backward, as the JAX
 package takes it with ``jnp.take`` outside any Pallas kernel.
 
 ``forward``, ``loss_fn`` and ``user_embedding`` take a ``lookup_fn``, as
 the JAX functions do: an object that gathers rows (``lookup_fn(table,
-ids)``) and sums weighted bags (``lookup_fn.bag(table, ids, weights)``)
-of the stacked table, such as the row-sharded lookup of
+ids)``), sums weighted bags (``lookup_fn.bag(table, ids, weights)``) and
+takes DIN's history (``lookup_fn.history(table, ids)``) of the stacked
+table, such as the row-sharded lookup of
 ``distributed.collectives.make_sharded_lookup``.  None takes
-:func:`default_lookup` and the ``bag_lookup`` bag.
+:func:`default_lookup`, the ``bag_lookup`` bag and ``history_lookup``.
 
 Serving (``forward``, ``user_embedding``, ``serve_retrieval``) runs under
 ``torch.inference_mode()`` on frozen parameters (``model.requires_grad_()``
@@ -47,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.embedding_bag import (embedding_bag_fixed,
+                                              history_lookup,
                                               stack_vocab_offsets)
 from repro_torch.models.layers import (ParamTree, abs_mlp_tower, abs_p,
                                       apply_mlp_tower, dense_init, mlp_tower)
@@ -194,10 +198,10 @@ def default_lookup(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
     ``F.embedding`` and not ``table[ids]``: the two gather alike, but the
     backward of advanced indexing sums each row's duplicates on one warp,
     which took 1.15 s of a 1.19 s DIN train step at the train_batch cell
-    (NVIDIA H100 80GB HBM3, 700.00 W), where the stream's Zipf head and the
-    history's -1 padding (clamped to row 0) name row 0 some 4 million
-    times; the embedding backward sorts the ids and sums a row's
-    duplicates in parallel pieces, in a fixed order."""
+    (NVIDIA H100 80GB HBM3, 700.00 W) when DIN's history was gathered here
+    too, its Zipf head and its -1 padding (clamped to row 0) naming row 0
+    some 4 million times; the embedding backward sorts the ids and sums a
+    row's duplicates in parallel pieces, in a fixed order."""
     ids = flat_ids.to(torch.int64)
     if table.dim() == 1:
         return F.embedding(ids, table[:, None])[..., 0]
@@ -299,21 +303,25 @@ def _forward(p: dict, batch: dict, cfg: RecsysConfig,
 def _din_forward(p: dict, batch: dict, cfg: RecsysConfig,
                  lookup_fn=None) -> torch.Tensor:
     dt = cfg.dtype
-    gather = _gather(lookup_fn)
     gids = global_ids(cfg, batch["sparse"])
-    emb = gather(p["table"], gids).to(dt)                     # (B, F, E)
+    emb = _gather(lookup_fn)(p["table"], gids).to(dt)         # (B, F, E)
     target = emb[:, cfg.item_field]                           # (B, E)
     hist_gids = history_ids(cfg, batch["hist"])               # (B, S)
-    valid = (hist_gids >= 0)[..., None].to(dt)
-    hist = gather(p["table"], hist_gids.clamp_min(0)).to(dt) * valid
+    valid = (hist_gids >= 0)[..., None]
+    # the rows with padded slots 0 (JAX's hist * valid) and the bag over
+    # the same ids, sum_s w[b, s] * table[hist_gids[b, s]]: the bag_lookup
+    # kernel, and for the table's whole gradient from both one
+    # bag_bwd_order and one bag_lookup_bwd launch, as JAX transposes its
+    # one lookup
+    hist, bag = (history_lookup if lookup_fn is None
+                 else lookup_fn.history)(p["table"], hist_gids)
+    hist = hist.to(dt)
     t = target[:, None, :].expand_as(hist)
     af = torch.cat([hist, t, hist - t, hist * t], dim=-1)
     scores = apply_mlp_tower(p["attn_mlp"], af, act=torch.sigmoid)
-    scores = torch.where(valid > 0, scores, -1e30)
+    scores = torch.where(valid, scores, -1e30)
     w = torch.softmax(scores, dim=1)                          # (B, S, 1)
-    # sum_s w[b, s] * table[hist_gids[b, s]], padded slots contributing 0:
-    # the bag_lookup kernel, and bag_lookup_bwd for its gradient
-    interest = _bag(lookup_fn, p["table"], hist_gids, w[..., 0]).to(dt)
+    interest = bag(w[..., 0]).to(dt)
     x = torch.cat([emb.reshape(emb.shape[0], -1), interest], dim=1)
     out = apply_mlp_tower(p["top_mlp"], x, act=torch.relu)
     return out[:, 0].to(torch.float32)

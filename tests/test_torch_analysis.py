@@ -146,16 +146,30 @@ def test_roofline_uses_the_h100_figures():
         troof.kernel_tile_costs("no_such_kernel")
 
 
-def test_bag_lookup_bwd_costs():
-    """ids and weights, g, the distinct rows, grad_w and the dense
-    grad_table, each once; 4 E flops a valid id."""
-    c = troof.bag_lookup_bwd_costs(B=2, F=3, E=4, V=10, n_valid=5,
-                                   n_rows=3)
-    assert c == {"hbm_bytes": float(2 * 3 * 8 + 2 * 4 * 4 + 3 * 4 * 4
-                                    + 2 * 3 * 4 + 10 * 4 * 4),
-                 "flops": 80.0}
-    c0 = troof.bag_lookup_bwd_costs(2, 3, 4, 10, 5, 3, weighted=False)
-    assert c0["hbm_bytes"] == c["hbm_bytes"] - 24
+@pytest.mark.parametrize("weighted", [True, False])
+def test_history_gradient_costs(weighted):
+    """DIN's history gradient: the whole reads the ids, the valid entries'
+    weights and G rows, g and the distinct rows once and writes grad_w and
+    the dense grad_table once; its two kernels split that, the order
+    writing the sorted keys, positions and weights that the table's pass
+    reads back."""
+    B, F, E, V, n_valid, n_rows = 2, 3, 4, 10, 5, 3
+    w = 4 * weighted
+    whole = troof.history_grad_costs(B, F, E, V, n_valid, n_rows, weighted)
+    assert whole == {"hbm_bytes": float(
+        B * F * 4 + n_valid * w + n_valid * E * 4 + B * E * 4
+        + n_rows * E * 4 + B * F * 4 + V * E * 4), "flops": 5.0 * E * n_valid}
+    order = troof.bwd_order_costs(B, F, E, n_valid, n_rows, weighted)
+    assert order == {"hbm_bytes": float(
+        B * F * 4 + n_valid * w + n_valid * (8 + w) + B * E * 4
+        + n_rows * E * 4 + B * F * 4), "flops": 2.0 * E * n_valid}
+    grad = troof.table_grad_costs(B, F, E, V, n_valid, weighted)
+    assert grad == {"hbm_bytes": float(
+        n_valid * (8 + w) + n_valid * E * 4 + B * E * 4 + V * E * 4),
+        "flops": 3.0 * E * n_valid}
+    # the two passes move the sorted entries twice more than the whole
+    assert (order["hbm_bytes"] + grad["hbm_bytes"] - whole["hbm_bytes"]
+            == 2 * n_valid * (8 + w) + B * E * 4)
 
 
 def _records():

@@ -17,8 +17,9 @@ port's ``models/embedding_bag.py`` against the JAX package.
   weighted and not, at rtol 1e-6 of the sum of the magnitudes each entry
   adds (``_assert_grad``); a float64 ``gradcheck`` of the Function; a
   numpy model of the kernel's sorted, chunked order
-  (``csrc/bag_lookup_bwd.cu`` runs only on a card) against the plain
-  ``grad_table`` at every chunk size; ``bwd_order``'s keys.
+  (``csrc/bag_lookup_bwd.cu`` runs only on a card), with the history's
+  cotangent G and without, against the plain ``grad_table`` at every
+  chunk size; ``bwd_order``'s plain order.
 """
 import jax
 import jax.numpy as jnp
@@ -399,70 +400,114 @@ def test_bag_lookup_bwd_rejects_what_the_kernel_does_not_take():
         bag_ops.bag_lookup_bwd(table, ids, None, g, impl="triton")
 
 
-def _kernel_model(V, E, ids, w, g, chunk):
-    """The kernel's arithmetic order in numpy: bwd_order's stable sort,
-    row starts by binary search, the chunk pass (a row wholly inside a
-    chunk written straight out, a row across a chunk edge leaving a
-    partial in slot 0 or 1) and the rows pass (zeros, or the partials in
-    chunk order)."""
-    keys, perm = (x.numpy() for x in bag_ops.bwd_order(T(ids), V))
+def _kernel_model(V, E, ids, w, g, G, chunk, combine=1024):
+    """``csrc/bag_lookup_bwd.cu``'s order in float32 numpy, from the
+    ids' order (``bwd_order``): each sorted entry's contribution G[e] +
+    w[e] * g[b] (a float32 multiply, then a float32 add); the chunk pass (a
+    row's run within a chunk added in order, a row wholly inside the chunk
+    written straight out, a row across the chunk's start leaving a partial
+    in slot 0, one across its end in slot 1) and the combine pass (the
+    chunk where a crossing row starts adds its partials: K = combine // E
+    groups, group k the partials k, k + K, ... in turn, then the groups in
+    order); a memset's zeros on every other row.  The float32 operations
+    are the kernel's, in its order."""
+    order, _ = bag_ops.bwd_order(T(np.zeros((V, E), np.float32)), T(ids),
+                                 None if w is None else T(w))
+    n = int(order.count)
+    keys, pos = order.keys.numpy(), order.pos.numpy()
     B, F = ids.shape
-    wf = np.ones(B * F, np.float32) if w is None else w.reshape(-1)
-    row_start = np.searchsorted(keys, np.arange(V + 1), side="left")
-    n_valid = row_start[V]
-    n_chunks = -(-(B * F) // chunk)
+    c = np.zeros((n, E), np.float32) if G is None else \
+        G.reshape(-1, E)[pos].astype(np.float32)
+    ws = np.ones(n, np.float32) if w is None else order.w.numpy()
+    c = c + ws[:, None] * g[pos // F]
+    assert c.dtype == np.float32
+    out = np.zeros((V, E), np.float32)
+    written = np.zeros(V, bool)
+    n_chunks = -(-n // chunk)
     partial = np.full((n_chunks, 2, E), np.nan, np.float32)
-    out = np.full((V, E), np.nan, np.float32)
-    for c in range(n_chunks):
-        lo, hi = c * chunk, min(c * chunk + chunk, n_valid)
-        j = lo
-        while j < hi:
-            row, seg = keys[j], j
-            acc = np.zeros(E, np.float32)
-            while j < hi and keys[j] == row:
-                acc = (acc + wf[perm[j]] * g[perm[j] // F]).astype(np.float32)
-                j += 1
-            if row_start[row] >= lo and row_start[row + 1] <= hi:
-                assert np.isnan(out[row]).all()          # written once
-                out[row] = acc
+
+    def write(row, acc):
+        assert not written[row]                     # each row written once
+        written[row] = True
+        out[row] = acc
+
+    for ci in range(n_chunks):
+        lo, hi = ci * chunk, min(ci * chunk + chunk, n)
+        first_starts = lo == 0 or keys[lo - 1] != keys[lo]
+        last_ends = hi == n or keys[hi] != keys[hi - 1]
+
+        def flush(row, seg, ends_in, acc):
+            if (seg > lo or first_starts) and ends_in:
+                write(row, acc)
             else:
-                partial[c, 0 if seg == lo else 1] = acc
-    for r in range(V):
-        rs, re = row_start[r], row_start[r + 1]
-        if rs < re and rs // chunk == (re - 1) // chunk:
+                partial[ci, 0 if seg == lo else 1] = acc
+
+        row, seg, acc = keys[lo], lo, np.zeros(E, np.float32)
+        for j in range(lo, hi):
+            if keys[j] != row:
+                flush(row, seg, True, acc)
+                row, seg, acc = keys[j], j, np.zeros(E, np.float32)
+            acc = acc + c[j]
+        flush(row, seg, last_ends, acc)
+    K = combine // E
+    for c0 in range(n_chunks):
+        lo, hi = c0 * chunk, min(c0 * chunk + chunk, n)
+        if hi == n or keys[hi] != keys[hi - 1]:
             continue
-        assert np.isnan(out[r]).all()
-        acc = np.zeros(E, np.float32)
-        if rs < re:
-            c0, c1 = rs // chunk, (re - 1) // chunk
-            acc = partial[c0, 0 if rs == c0 * chunk else 1].copy()
-            for c in range(c0 + 1, c1 + 1):
-                acc = acc + partial[c, 0]
-        out[r] = acc
+        r = keys[hi - 1]
+        at_lo = keys[lo] == r
+        if at_lo and lo > 0 and keys[lo - 1] == r:
+            continue
+        m = (np.searchsorted(keys, r, side="right") - 1) // chunk - c0 + 1
+        red = []
+        for k in range(K):
+            s = np.zeros(E, np.float32)
+            for i in range(k, m, K):
+                s = s + partial[c0 + i, (0 if at_lo else 1) if i == 0 else 0]
+            red.append(s)
+        t = red[0]
+        for q in range(1, K):
+            t = t + red[q]
+        write(r, t)
     assert not np.isnan(out).any()
     return out
 
 
+@pytest.mark.parametrize("with_G", [True, False])
 @pytest.mark.parametrize("chunk", [1, 3, 8, 64, 4096])
 @pytest.mark.parametrize("weighted", [True, False])
-def test_kernel_order_model_matches_the_plain_grad_table(chunk, weighted):
+def test_kernel_order_model_matches_the_plain_grad_table(chunk, weighted,
+                                                         with_G):
     """The sorted, chunked order of ``csrc/bag_lookup_bwd.cu`` (modelled
     in numpy: the kernel itself runs only on a card) gives the plain
     version's ``grad_table`` at every chunk size, rows crossing one and
-    many chunk edges and the Zipf head among them.  The sums are taken in
-    another order, so to float32 rounding (rtol 1e-5 / atol 1e-6, the
-    tolerance ``chip_smoke.py`` holds the kernel to)."""
+    many chunk edges and the Zipf head among them, with the history's
+    cotangent G and without.  The sums are taken in another order, so to
+    float32 rounding (rtol 1e-5 / atol 1e-6, the tolerance
+    ``chip_smoke.py`` holds the kernel to)."""
     table, ids, w, g = _bwd_inputs(40, 5, 12, 9, 31, zipf=True)
+    G = np.random.default_rng(4).normal(size=ids.shape + (5,)).astype(
+        np.float32) if with_G else None
     w = w if weighted else None
-    got = _kernel_model(40, 5, ids, w, g, chunk)
+    got = _kernel_model(40, 5, ids, w, g, G, chunk)
     _, want = bag_ops.bag_lookup_bwd(T(table), T(ids),
-                                     None if w is None else T(w), T(g))
+                                     None if w is None else T(w), T(g),
+                                     G=None if G is None else T(G))
     np.testing.assert_allclose(got, want.numpy(), rtol=RTOL, atol=ATOL)
 
 
 def test_bwd_order_sorts_by_row_stably_invalid_last():
+    """The plain order: the valid entries by key ``clip(id, max=V-1)``,
+    stably, their positions and weights alongside; every invalid entry is
+    left out (past ``count``, where the kernel's slots are unused)."""
     ids = torch.tensor([[3, -1, 3, 9], [0, 3, 12, -1]], dtype=torch.int32)
-    keys, perm = bag_ops.bwd_order(ids, 10)
-    assert keys.dtype == torch.int32 and perm.dtype == torch.int64
-    assert keys.tolist() == [0, 3, 3, 3, 9, 9, 10, 10]
-    assert perm.tolist() == [4, 0, 2, 5, 3, 6, 1, 7]
+    w = torch.arange(8, dtype=torch.float32).reshape(2, 4)
+    order, _ = bag_ops.bwd_order(torch.zeros((10, 2)), ids, w)
+    assert order.keys.dtype == order.pos.dtype == torch.int32
+    assert order.keys.tolist() == [0, 3, 3, 3, 9, 9]
+    assert order.pos.tolist() == [4, 0, 2, 5, 3, 6]
+    assert order.w.tolist() == [4.0, 0.0, 2.0, 5.0, 3.0, 6.0]
+    assert order.count.tolist() == [6]
+    bare, grad_w = bag_ops.bwd_order(torch.zeros((10, 2)), ids)
+    assert bare.w is None and grad_w is None
+    assert torch.equal(bare.pos, order.pos)

@@ -39,6 +39,7 @@ def rehearsal():
         mp.setattr(cs, "peak_memory", lambda reset=False: None)
         mp.setattr(cs, "expect_launches", _no_launches)
         mp.setattr(cs, "time_call", _untimed)
+        mp.setattr(cs, "pass_split", lambda fn, what, reps=20: [])
         yield mp
 
 
@@ -77,8 +78,9 @@ def test_phase2_rows(rehearsal, recsys):
     # over the audio size's 53,387
     rows, host_loop = cs.phase2("cpu", n_queries=64, n_rows=3000)
     rows["bag_lookup"] = cs.bag_checks(recsys, "cpu")[0]   # as main() does
-    rows["bag_lookup_bwd"] = cs.bag_bwd_check(             # phase 12's row
+    bwd = cs.bag_bwd_check(                                # phase 12's rows
         cs.train_setup("cpu", reduced=True, batch=64, steps=1), "cpu")
+    rows["bag_bwd_order"], rows["bag_lookup_bwd"] = bwd["order"], bwd["grad"]
     assert set(rows) == set(cs.KERNELS)
     # the host loops' launches beside the whole search, by counter: none
     # on the CPU, where every wrapper takes its plain version
@@ -695,7 +697,7 @@ def test_main_keeps_its_kernels_and_ok_lines():
     assert set(cs.KERNELS) == {
         "gather_dist", "beam_merge", "fused_hop", "mrng_occlusion",
         "gather_dist_q", "pq_adc", "l2_topk", "bag_lookup", "beam_search",
-        "extend_select", "bag_lookup_bwd"}
+        "extend_select", "bag_lookup_bwd", "bag_bwd_order"}
     src = inspect.getsource(cs.main)
     order = [src.index(s) for s in (
         "compare_quant_phase(", "persist_serve_phase(", "baselines_phase(",

@@ -44,6 +44,7 @@ def rehearsal():
         mp.setattr(cs, "peak_memory", lambda reset=False: None)
         mp.setattr(cs, "expect_launches", _no_launches)
         mp.setattr(cs, "time_call", _untimed)
+        mp.setattr(cs, "pass_split", lambda fn, what, reps=20: fn() and [])
         mp.setattr(cs, "_event_timed", _wall_timed)
         yield mp
 
@@ -86,39 +87,61 @@ def test_train_setup_reads_the_published_cell():
 
 
 def test_bag_bwd_row(tr):
-    """12a at the reduced DIN's shape: grad_w and grad_table against the
-    plain version, a second launch equal, every time and the bound."""
+    """12a at the reduced DIN's shape: the history gradient's two kernels
+    (grad_w, the order and grad_table) against the plain versions, a
+    second launch equal, every time and the bounds, and their rows of the
+    kernels' line."""
     r = cs.bag_bwd_check(tr, "cpu")
-    assert r["name"] == "bag_lookup_bwd" and r["max_abs_err"] == 0.0
-    assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
-    assert r["tl"] is not None                          # F.embedding_bag
-    for t in ("t", "t_kernels", "t_sort", "tp"):
-        assert r[t]["timed_by"] == "cuda_graph"
-    assert r["shape"].startswith(f"DIN interest train_batch: B={B} F=10 E=8")
-    row = cs.kernel_rows({"bag_lookup_bwd": r}, {"bag_lookup_bwd": 3})[0]
-    assert row["source"] == "src/repro_torch/kernels/csrc/bag_lookup_bwd.cu"
-    assert row["replaces"] == "src/repro/models/recsys.py:220"
-    assert os.path.exists(os.path.join(cs.ROOT, row["source"]))
+    grad, order, whole = r["grad"], r["order"], r["whole"]
+    assert grad["name"] == "bag_lookup_bwd" and grad["max_abs_err"] == 0.0
+    assert order["name"] == "bag_bwd_order" and order["max_abs_err"] == 0.0
+    for x in (grad, order, whole):
+        assert x["bound_ms"] > 0 and x["bound_by"] == "bytes"
+        assert x["t"]["timed_by"] == x["tp"]["timed_by"] == "cuda_graph"
+    assert grad["tl"] is not None and order["tl"] is None
+    assert grad["t_gather"]["timed_by"] == "cuda_graph"
+    assert whole["bound_ms"] > grad["bound_ms"] > order["bound_ms"]
+    assert grad["shape"].startswith(f"DIN history train_batch: B={B} F=10 "
+                                    "E=8")
+    rows = cs.kernel_rows({"bag_lookup_bwd": grad, "bag_bwd_order": order},
+                          {"bag_lookup_bwd": 3, "bag_bwd_order": 3})
+    for row, name in zip(rows, ("bag_lookup_bwd", "bag_bwd_order")):
+        assert row["source"] == f"src/repro_torch/kernels/csrc/{name}.cu"
+        assert row["replaces"] == "src/repro/models/recsys.py:212-220"
+        assert os.path.exists(os.path.join(cs.ROOT, row["source"]))
 
 
 def test_bag_bwd_bound_counts_what_the_data_needs():
-    """ids, weights, g, each distinct row a valid id names, grad_w and the
-    dense grad_table, each once."""
+    """The whole: ids, the valid entries' weights and G rows, g, each
+    distinct row a valid id names, grad_w and the dense grad_table, each
+    once; the order: ids, the valid weights, g, the distinct rows, grad_w
+    and the sorted keys, positions and weights; grad_table's pass: the
+    sorted entries, their G rows, g and grad_table."""
     import torch
 
     table = torch.zeros((10, 4))
     ids = torch.tensor([[1, 1, -1], [2, 12, -1]], dtype=torch.int32)
-    g = torch.ones((2, 4))
+    g, G = torch.ones((2, 4)), torch.ones((2, 3, 4))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cs, "time_call", _untimed)
-        r = cs.check_bag_lookup_bwd(table, ids, torch.ones((2, 3)), g, "t")
-        r0 = cs.check_bag_lookup_bwd(table, ids, None, g, "t")
-    rows = 3                                            # 1, 2 and 12 -> 9
-    want = (6 * 4 * 2 + 2 * 4 * 4 + rows * 4 * 4 + 6 * 4 + 10 * 4 * 4)
-    assert r["bound_ms"] == pytest.approx(want / cs.HBM_BYTES_PER_S * 1e3)
-    assert r0["bound_ms"] == pytest.approx((want - 24) / cs.HBM_BYTES_PER_S
-                                           * 1e3)
-    assert "4 valid ids, 3 rows, 2 on the most named row" in r["shape"]
+        mp.setattr(cs, "pass_split", lambda fn, what, reps=20: [])
+        r = cs.check_history_grad(table, ids, torch.ones((2, 3)), g, G, "t")
+        r0 = cs.check_history_grad(table, ids, None, g, G, "t")
+    valid, rows = 4, 3                                  # 1, 2 and 12 -> 9
+    whole = (6 * 4 + valid * 4 + valid * 4 * 4 + 2 * 4 * 4 + rows * 4 * 4
+             + 6 * 4 + 10 * 4 * 4)
+    order = 6 * 4 + valid * 4 + valid * 12 + 2 * 4 * 4 + rows * 4 * 4 + 6 * 4
+    grad = valid * 12 + valid * 4 * 4 + 2 * 4 * 4 + 10 * 4 * 4
+    for x, want in ((r["whole"], whole), (r["order"], order),
+                    (r["grad"], grad)):
+        assert x["bound_ms"] == pytest.approx(want / cs.HBM_BYTES_PER_S
+                                              * 1e3)
+    assert r0["whole"]["bound_ms"] == pytest.approx(
+        (whole - valid * 4) / cs.HBM_BYTES_PER_S * 1e3)
+    assert r0["grad"]["bound_ms"] == pytest.approx(
+        (grad - valid * 4) / cs.HBM_BYTES_PER_S * 1e3)
+    assert "4 valid ids, 3 rows, 2 on the most named row" in \
+        r["grad"]["shape"]
 
 
 def test_train_phase(trained, counted):
@@ -131,7 +154,8 @@ def test_train_phase(trained, counted):
         # on the CPU the kernels' chain is the plain one, and every sum is
         # added in one order
         assert r["chains"] == {"plain_plain": 0.0, "plain_kernel": 0.0}
-    assert launches["bag_lookup"] == launches["bag_lookup_bwd"] == 0
+    assert launches["bag_lookup"] == launches["bag_bwd_order"] == \
+        launches["bag_lookup_bwd"] == 0
 
 
 def test_chain_readings_fail_on_a_kernel_chain_that_differs(tr, trained):
@@ -198,7 +222,8 @@ def test_training_phase_end_to_end(rehearsal, counted):
     directory; its numbers come back without the parameters."""
     out = cs.training_phase("cpu", counted[1], reduced=True, batch=B,
                             steps=30, fail_at=12)
-    assert out["bwd"]["name"] == "bag_lookup_bwd"
+    assert out["bwd"]["grad"]["name"] == "bag_lookup_bwd"
+    assert out["bwd"]["order"]["name"] == "bag_bwd_order"
     assert set(out["trained"]) == set(cs.RECSYS_ARCHS)
     assert "params" not in out["trained"]["din"]
     assert out["loop"]["ckpt_bytes"] > 0
@@ -214,13 +239,16 @@ def test_main_runs_phase_12_after_phase_8():
     src = inspect.getsource(cs.main)
     order = [src.index(s) for s in (
         "recsys_phase(", 'training_phase(device, count)["bwd"]',
+        'checks["bag_bwd_order"]', 'checks["bag_lookup_bwd"]',
         "build_phase(", 'json.dumps({"kernels": kernel_rows(')]
     assert order == sorted(order)
     assert cs.launch_counters()["bag_lookup_bwd"][1] == "launches_bwd"
+    assert cs.launch_counters()["bag_bwd_order"][1] == "launches_order"
     from repro_torch.kernels.bag_lookup import ops
 
-    real = ops.bag_lookup_bwd
-    with cs.plain_kernels():
-        assert ops.bag_lookup_bwd is not real
-        assert ops.bag_lookup_bwd.keywords == {"impl": "ref"}
-    assert ops.bag_lookup_bwd is real
+    for name in ("bag_lookup_bwd", "bwd_order", "table_grad"):
+        real = getattr(ops, name)
+        with cs.plain_kernels():
+            assert getattr(ops, name) is not real
+            assert getattr(ops, name).keywords == {"impl": "ref"}
+        assert getattr(ops, name) is real

@@ -115,12 +115,13 @@ def test_wrappers_raise_off_cpu_and_off_cuda():
 
 
 def test_kernel_build_keys_cover_every_source():
-    assert _build.sources() == ["bag_lookup", "bag_lookup_bwd", "beam_merge",
+    assert _build.sources() == ["bag_bwd_order", "bag_lookup",
+                                "bag_lookup_bwd", "beam_merge",
                                 "beam_search", "extend_select", "fused_hop",
                                 "gather_dist", "gather_dist_q", "l2_topk",
                                 "mrng_occlusion", "pq_adc"]
     keys = {_build._target(n).name for n in _build.sources()}
-    assert len(keys) == 11 and all(k.endswith(".so") for k in keys)
+    assert len(keys) == 12 and all(k.endswith(".so") for k in keys)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
